@@ -1,0 +1,69 @@
+"""pipe_tpu_torch — the streaming DSP pipeline framework of :mod:`pipe_tpu`,
+ported to PyTorch and CUDA.
+
+A pipeline is a graph of *lines*; each line is ``Source -> [0..n
+Processors] -> Sink`` operating on fixed-size float32 time-blocks, with the
+same components, lifecycle hooks and mutation control plane as the JAX
+package. Components are step functions over trees of tensors
+``(state, params, signal) -> (state, signal)``, called eagerly once per
+block on the line's device. The biquad recurrence runs in a CUDA kernel
+written for Hopper (``pipe_tpu_torch/csrc/``); the other ops are PyTorch
+operations pinned to IEEE FP32.
+
+This package imports no JAX. Ported so far: the streaming main path (FIR,
+polyphase resampler, fused FIR+resampler, biquad EQ, gain, mix, the
+flagship chunk function, and the blocking ``run`` driver).
+"""
+
+from pipe_tpu_torch.signal import (
+    Signal,
+    SignalProperties,
+    silence,
+    from_array,
+)
+from pipe_tpu_torch import mutable
+from pipe_tpu_torch.errors import (
+    PipeError,
+    AllocationError,
+    StartError,
+    FlushError,
+    RunError,
+    ErrorRun,
+)
+from pipe_tpu_torch.components import (
+    Source,
+    Processor,
+    Sink,
+    SourceAllocatorFunc,
+    ProcessorAllocatorFunc,
+    SinkAllocatorFunc,
+)
+from pipe_tpu_torch.graph import Line, Processors
+from pipe_tpu_torch.runtime import run
+from pipe_tpu_torch import config
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "config",
+    "Signal",
+    "SignalProperties",
+    "silence",
+    "from_array",
+    "mutable",
+    "PipeError",
+    "AllocationError",
+    "StartError",
+    "FlushError",
+    "RunError",
+    "ErrorRun",
+    "Source",
+    "Processor",
+    "Sink",
+    "SourceAllocatorFunc",
+    "ProcessorAllocatorFunc",
+    "SinkAllocatorFunc",
+    "Line",
+    "Processors",
+    "run",
+]

@@ -1,0 +1,75 @@
+"""Global numerics knobs: the float32 precision of matrix products and
+convolutions.
+
+On the card, a float32 ``torch.matmul`` runs in IEEE FP32 by default, but a
+float32 convolution goes through cuDNN in TF32 (about three decimal digits).
+The FIR, the polyphase resampler and ``combine_bank`` are convolutions, so
+in TF32 the flagship chain would fall far below the 100 dB bar.
+
+``'highest'`` (the default, applied when this module is imported) therefore
+pins IEEE FP32 for cuBLAS AND cuDNN. ``'default'`` allows TF32 in both.
+The knobs are torch's process-wide ``fp32_precision`` settings of the two
+backends; they take effect at the next call and change nothing on the CPU.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Iterator
+
+import torch
+
+# precision name -> torch fp32_precision value for cuBLAS and cuDNN
+_NAMED = {"default": "tf32", "highest": "ieee"}
+
+_matmul_precision = "highest"
+
+
+def _apply(name: str) -> None:
+    mode = _NAMED[name]
+    torch.backends.cuda.matmul.fp32_precision = mode
+    torch.backends.cudnn.conv.fp32_precision = mode
+
+
+def fp32_pinned() -> bool:
+    """True when both cuBLAS and cuDNN run float32 in IEEE FP32 (no TF32)."""
+    return (
+        torch.backends.cuda.matmul.fp32_precision == "ieee"
+        and torch.backends.cudnn.conv.fp32_precision == "ieee"
+    )
+
+
+def set_matmul_precision(p: str) -> None:
+    """Set the float32 precision of matmuls and convolutions:
+    ``'highest'`` (IEEE FP32) or ``'default'`` (TF32)."""
+    global _matmul_precision
+    if not isinstance(p, str):
+        raise TypeError(f"expected a precision name, got {type(p)!r}")
+    name = p.lower()
+    if name == "high":
+        raise NotImplementedError("'high' (3xTF32) is not ported yet")
+    if name not in _NAMED:
+        raise ValueError(
+            f"unknown precision {p!r}; expected one of {sorted(_NAMED)}"
+        )
+    _apply(name)
+    _matmul_precision = name
+
+
+def matmul_precision() -> str:
+    """The current precision name."""
+    return _matmul_precision
+
+
+@contextmanager
+def matmul_precision_scope(p: str) -> Iterator[None]:
+    """Temporarily override the precision."""
+    old = _matmul_precision
+    set_matmul_precision(p)
+    try:
+        yield
+    finally:
+        set_matmul_precision(old)
+
+
+_apply(_matmul_precision)

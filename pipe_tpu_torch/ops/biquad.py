@@ -1,0 +1,362 @@
+"""Biquad IIR EQ: the FIR part of each section plus the all-pole recurrence
+``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``, with one refinement pass.
+
+The PyTorch counterpart of :mod:`pipe_tpu.ops.biquad`'s default float32
+path. :func:`_iir_apply` picks how the recurrence runs:
+
+- ``'kernel'``: the hand-written CUDA kernel (``csrc/iir_tiles.cu``, the
+  port of the TPU's Pallas tile kernel). Taken for every CUDA tensor that
+  passes the tile gate (``B % 256 == 0``, ``B >= 2048``, ``C % 8 == 0``).
+- ``'tiles'``: its plain PyTorch version (:func:`_iir_tiles_ref`), a loop
+  over 256-sample tiles, each one ``(C, 256) @ (256, 256)`` product with the
+  lower-triangular Toeplitz matrix of the impulse response plus a rank-2
+  boundary term. Taken for CPU tensors that pass the gate.
+- ``'assoc'``: the affine recurrence over 2-vectors,
+  ``s[n] = A s[n-1] + u[n]``, evaluated by prefix doubling over
+  ``(A, u)`` pairs in float32. Taken for blocks that fail the gate.
+
+The double-f32 ``precision='extended'`` path is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pipe_tpu_torch import kernels
+from pipe_tpu_torch.components import Processor, param_tensor
+from pipe_tpu_torch.signal import Signal, zero_past
+
+_TILE_Q = kernels.IIR_TILE
+_TILE_MIN_B = kernels.IIR_MIN_B
+
+
+def _iir_sequences(a1, a2, Q: int):
+    """Length-Q impulse/boundary responses of ``y[n] = v[n] - a1 y[n-1] -
+    a2 y[n-2]``, by the step-by-step float32 recurrence:
+
+      g[i]     — response to v = delta (zero initial state)
+      alpha[i] — response to y[-1] = 1 (v = 0)
+      beta[i]  — response to y[-2] = 1 (v = 0)
+
+    Every tile is then ``y = Tl @ v + y[-1] * alpha + y[-2] * beta`` with
+    ``Tl[i, j] = g[i-j]``.
+    """
+    one, zero = torch.ones_like(a1), torch.zeros_like(a1)
+    y1 = torch.stack([one, -a1, -a2])  # values at i = 0
+    y2 = torch.stack([zero, one, zero])  # values at i = -1
+    seqs = [y1]
+    for _ in range(Q - 1):
+        y = -a1 * y1 - a2 * y2
+        y1, y2 = y, y1
+        seqs.append(y)
+    seqs = torch.stack(seqs)  # (Q, 3)
+    return seqs[:, 0], seqs[:, 1], seqs[:, 2]
+
+
+def _iir_tiles_ref(v, s, TlT, ab, Q: int):
+    """Plain version of the tile kernel: carry (C, 2) = (y[-1], y[-2])."""
+    ys = []
+    carry = s
+    for t in range(v.shape[1] // Q):
+        y = v[:, t * Q: (t + 1) * Q] @ TlT
+        y = y + carry[:, 0:1] * ab[0:1, :] + carry[:, 1:2] * ab[1:2, :]
+        carry = torch.stack([y[:, -1], y[:, -2]], dim=1)
+        ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
+def _iir_assoc(v, s, a1, a2):
+    """The recurrence as an inclusive prefix of affine maps
+    ``(A, u) = ([[-a1, -a2], [1, 0]], (v[n], 0))`` by prefix doubling
+    (Hillis-Steele): ``pref[i] = pref[i] after pref[i - k]`` for
+    k = 1, 2, 4, ... The matrices are the same for every channel, so they
+    stay ``(B,)`` entries while the vectors are ``(C, B)``."""
+    C, B = v.shape
+    a = (-a1).expand(B).clone()
+    b = (-a2).expand(B).clone()
+    c = torch.ones_like(a)
+    d = torch.zeros_like(a)
+    ux = v
+    uy = torch.zeros_like(v)
+    k = 1
+    while k < B:
+        # right = pref[k:], left = pref[:-k]: (A2 A1, A2 u1 + u2)
+        ra, rb, rc, rd = a[k:], b[k:], c[k:], d[k:]
+        la, lb, lc, ld = a[:-k], b[:-k], c[:-k], d[:-k]
+        lux, luy = ux[:, :-k], uy[:, :-k]
+        nux = ra * lux + rb * luy + ux[:, k:]
+        nuy = rc * lux + rd * luy + uy[:, k:]
+        a, b, c, d = (
+            torch.cat([a[:k], ra * la + rb * lc]),
+            torch.cat([b[:k], ra * lb + rb * ld]),
+            torch.cat([c[:k], rc * la + rd * lc]),
+            torch.cat([d[:k], rc * lb + rd * ld]),
+        )
+        ux = torch.cat([ux[:, :k], nux], dim=1)
+        uy = torch.cat([uy[:, :k], nuy], dim=1)
+        k *= 2
+    # y[n] = first row of (P[n] s + q[n])
+    return a * s[:, 0:1] + b * s[:, 1:2] + ux
+
+
+def _iir_apply(v, s, a1, a2, force: str | None = None):
+    """Dispatch the recurrence ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``.
+
+    Blocks that pass the tile gate take the CUDA kernel on the card and its
+    plain version on the CPU; other blocks take the prefix-doubling path.
+    ``force`` pins a path: 'assoc' | 'tiles' | 'kernel'.
+    """
+    C, B = v.shape
+    Q = _TILE_Q
+    path = force
+    if path is None:
+        tiled_ok = B % Q == 0 and B >= _TILE_MIN_B and C % 8 == 0
+        if tiled_ok:
+            path = "kernel" if v.is_cuda else "tiles"
+        else:
+            path = "assoc"
+    if path == "kernel":
+        return kernels.iir_tiles(v, s, a1, a2)
+    if path == "assoc":
+        return _iir_assoc(v, s, a1, a2)
+    if path != "tiles":
+        raise ValueError(f"unknown recurrence path {force!r}")
+    g, alpha, beta = _iir_sequences(a1, a2, Q)
+    i = torch.arange(Q, device=v.device)[:, None]
+    j = torch.arange(Q, device=v.device)[None, :]
+    TlT = torch.where(i <= j, g[(j - i).clamp(0, Q - 1)], 0.0)  # Tl^T (Q, Q)
+    ab = torch.stack([alpha, beta], dim=0)  # (2, Q)
+    return _iir_tiles_ref(v, s, TlT, ab, Q)
+
+
+def _iir_refine(v, s, y, a1, a2):
+    """One step of iterative refinement on the pole recurrence: compute the
+    defect ``r[n] = v[n] - (y[n] + a1 y[n-1] + a2 y[n-2])`` and add the
+    filtered defect back (the defect is ~2^-24 of the signal, so the
+    correction pass runs in clean f32).
+
+    The defect is formed in float64, where the products of float32 values
+    are exact, and rounded once to float32. XLA fuses this expression into
+    FMAs (exact products too); eager PyTorch would round each product, and
+    those roundings are as large as the defect itself (~2 dB lost)."""
+    yp = torch.cat([s.flip(1), y], dim=1).double()  # [y[-2], y[-1], y...]
+    r = v.double() - (y.double() + a1.double() * yp[:, 1:-1]
+                      + a2.double() * yp[:, :-2])
+    return y + _iir_apply(r.float(), torch.zeros_like(s), a1, a2)
+
+
+def biquad_section_block(state, x, frames: int, coefs, refine: bool = True):
+    """One block through one biquad section.
+
+    ``state``: dict with ``x_tail`` (C, 2) and ``s`` (C, 2) =
+    (y[n-1], y[n-2]); ``x``: (C, B) valid to ``frames``; ``coefs``: (6,)
+    [b0, b1, b2, 1, a1, a2]. Returns ``(new_state, y)``.
+    """
+    b0, b1, b2 = coefs[0], coefs[1], coefs[2]
+    a1, a2 = coefs[4], coefs[5]
+    xm = zero_past(x, frames)
+
+    # FIR part v[n] = b0 x[n] + b1 x[n-1] + b2 x[n-2] with carried tail
+    buf = torch.cat([state["x_tail"], xm], dim=1)  # (C, B+2)
+    v = b0 * buf[:, 2:] + b1 * buf[:, 1:-1] + b2 * buf[:, :-2]
+
+    s_init = state["s"]
+    y = _iir_apply(v, s_init, a1, a2)
+    if refine:
+        y = _iir_refine(v, s_init, y, a1, a2)
+
+    # state after the last VALID frame: y_hist[k] = y[k-2], so it is
+    # (y_hist[frames+1], y_hist[frames]); frames=0 keeps the carried state
+    y_hist = torch.cat([s_init[:, 1:2], s_init[:, 0:1], y], dim=1)
+    new_s = y_hist[:, frames: frames + 2].flip(1)
+    new_x_tail = buf[:, frames: frames + 2].contiguous()
+    return {"x_tail": new_x_tail, "s": new_s}, y
+
+
+def biquad_block(state, x, frames: int, sections, refine: bool = True):
+    """Cascade of biquad sections. ``sections``: (S, 6) SOS matrix (scipy
+    layout, a0 == 1). ``state``: list of per-section dicts."""
+    new_states = []
+    y = x
+    for i in range(sections.shape[0]):
+        st, y = biquad_section_block(state[i], y, frames, sections[i],
+                                     refine=refine)
+        new_states.append(st)
+    return new_states, y
+
+
+def biquad_init_state(channels: int, n_sections: int, device=None):
+    def z2():
+        return torch.zeros((channels, 2), dtype=torch.float32, device=device)
+
+    return [{"x_tail": z2(), "s": z2()} for _ in range(n_sections)]
+
+
+class Biquad:
+    """Biquad cascade processor from an SOS matrix (scipy ``sosfilt``
+    layout: rows [b0 b1 b2 a0 a1 a2], a0 normalized to 1). Coefficients are
+    a live parameter (section count fixed)."""
+
+    def __init__(self, sos, refine: bool = True, precision: str | None = None):
+        if precision not in (None, "extended"):
+            raise ValueError("precision must be None or 'extended'")
+        if precision == "extended":
+            raise NotImplementedError(
+                "precision='extended' (double-f32) is not ported yet"
+            )
+        self._sos = param_tensor(self._normalize(sos))
+        self._refine = bool(refine)
+        self._component = None
+        self.context = None
+
+    @staticmethod
+    def _normalize(sos) -> np.ndarray:
+        sos = np.asarray(sos, np.float64)
+        if sos.ndim == 1:
+            sos = sos[None, :]
+        if sos.shape[-1] != 6:
+            raise ValueError("sos rows must be [b0 b1 b2 a0 a1 a2]")
+        return sos / sos[:, 3:4]
+
+    def processor(self):
+        def alloc(mctx, block_size, props):
+            self.context = mctx
+            refine = self._refine
+
+            def step(state, params, sig: Signal):
+                new_state, y = biquad_block(
+                    state, sig.data, sig.frames, params["sos"], refine=refine
+                )
+                return new_state, sig.with_data(y)
+
+            self._component = Processor(
+                output=props,
+                step=step,
+                state=biquad_init_state(props.channels, self.n_sections,
+                                        props.device),
+                params={"sos": self._sos.to(props.device)},
+            )
+            return self._component
+
+        return alloc
+
+    @property
+    def n_sections(self) -> int:
+        return int(self._sos.shape[0])
+
+    def set_sos(self, sos):
+        new = self._normalize(sos)
+
+        def fn():
+            cur = self._component.get_param("sos")
+            self._component.set_param("sos", param_tensor(new, cur.device))
+
+        return self.context.mutate(fn)
+
+
+def _rbj_row(b0, b1, b2, a0, a1, a2) -> np.ndarray:
+    return np.array([b0 / a0, b1 / a0, b2 / a0, 1.0, a1 / a0, a2 / a0])
+
+
+def _rbj_wa(sample_rate: float, freq: float, q: float):
+    w0 = 2.0 * np.pi * freq / sample_rate
+    return w0, np.sin(w0) / (2.0 * q)
+
+
+def design_peaking_eq(
+    sample_rate: float, freq: float, q: float, gain_db: float
+) -> np.ndarray:
+    """RBJ cookbook peaking EQ, one SOS row, float64 host-side."""
+    A = 10.0 ** (gain_db / 40.0)
+    w0, alpha = _rbj_wa(sample_rate, freq, q)
+    return _rbj_row(
+        1 + alpha * A, -2 * np.cos(w0), 1 - alpha * A,
+        1 + alpha / A, -2 * np.cos(w0), 1 - alpha / A,
+    )
+
+
+def design_lowpass_biquad(
+    sample_rate: float, freq: float, q: float = 0.7071
+) -> np.ndarray:
+    """RBJ 2nd-order lowpass, one SOS row."""
+    w0, alpha = _rbj_wa(sample_rate, freq, q)
+    c = np.cos(w0)
+    return _rbj_row(
+        (1 - c) / 2, 1 - c, (1 - c) / 2, 1 + alpha, -2 * c, 1 - alpha
+    )
+
+
+def design_highpass_biquad(
+    sample_rate: float, freq: float, q: float = 0.7071
+) -> np.ndarray:
+    """RBJ 2nd-order highpass, one SOS row."""
+    w0, alpha = _rbj_wa(sample_rate, freq, q)
+    c = np.cos(w0)
+    return _rbj_row(
+        (1 + c) / 2, -(1 + c), (1 + c) / 2, 1 + alpha, -2 * c, 1 - alpha
+    )
+
+
+def design_bandpass(sample_rate: float, freq: float, q: float) -> np.ndarray:
+    """RBJ constant-0dB-peak bandpass, one SOS row."""
+    w0, alpha = _rbj_wa(sample_rate, freq, q)
+    return _rbj_row(
+        alpha, 0.0, -alpha, 1 + alpha, -2 * np.cos(w0), 1 - alpha
+    )
+
+
+def design_notch(sample_rate: float, freq: float, q: float) -> np.ndarray:
+    """RBJ notch, one SOS row."""
+    w0, alpha = _rbj_wa(sample_rate, freq, q)
+    c = np.cos(w0)
+    return _rbj_row(1.0, -2 * c, 1.0, 1 + alpha, -2 * c, 1 - alpha)
+
+
+def design_allpass(sample_rate: float, freq: float, q: float) -> np.ndarray:
+    """RBJ allpass (unit magnitude, phase rotation), one SOS row."""
+    w0, alpha = _rbj_wa(sample_rate, freq, q)
+    c = np.cos(w0)
+    return _rbj_row(
+        1 - alpha, -2 * c, 1 + alpha, 1 + alpha, -2 * c, 1 - alpha
+    )
+
+
+def _design_shelf(
+    sample_rate: float, freq: float, gain_db: float, slope: float, low: bool
+) -> np.ndarray:
+    A = 10.0 ** (gain_db / 40.0)
+    w0 = 2.0 * np.pi * freq / sample_rate
+    c = np.cos(w0)
+    alpha = (
+        np.sin(w0) / 2.0
+        * np.sqrt((A + 1.0 / A) * (1.0 / slope - 1.0) + 2.0)
+    )
+    s2a = 2.0 * np.sqrt(A) * alpha
+    p, m = A + 1, A - 1
+    if low:
+        return _rbj_row(
+            A * ((p) - m * c + s2a), 2 * A * (m - p * c),
+            A * (p - m * c - s2a),
+            p + m * c + s2a, -2 * (m + p * c), p + m * c - s2a,
+        )
+    return _rbj_row(
+        A * (p + m * c + s2a), -2 * A * (m + p * c),
+        A * (p + m * c - s2a),
+        p - m * c + s2a, 2 * (m - p * c), p - m * c - s2a,
+    )
+
+
+def design_lowshelf(
+    sample_rate: float, freq: float, gain_db: float, slope: float = 1.0
+) -> np.ndarray:
+    """RBJ low shelf, one SOS row (``slope=1`` is the steepest monotonic
+    shelf)."""
+    return _design_shelf(sample_rate, freq, gain_db, slope, low=True)
+
+
+def design_highshelf(
+    sample_rate: float, freq: float, gain_db: float, slope: float = 1.0
+) -> np.ndarray:
+    """RBJ high shelf, one SOS row."""
+    return _design_shelf(sample_rate, freq, gain_db, slope, low=False)
