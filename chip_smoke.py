@@ -23,11 +23,28 @@ the card (``cuda:0``), in phases, each printing one line:
    host receive))`` on the card: exactly (2, 480000) frames out, >= 100 dB
    against the same line run on the CPU and >= 100 dB against a float64
    scipy oracle of the chain, the kernel launched 4 times per block,
-   samples/s printed.
+   samples/s printed;
+8. the slice through the async ``Pipe`` on the card (``lookahead=4``), with
+   live surgery while it streams: an EQ retune pushed for block 12, a
+   low-shelf ``Biquad`` inserted before the mix at block 24, and a second
+   line (mock source -> resampler -> EQ -> mock sink) added live on its
+   own executor thread. Checks: line A's output is exactly (2, 480000),
+   >= 100 dB against the same scenario run by the port on the CPU, >= 120
+   dB against the card at ``lookahead=1``; the first sample that differs
+   from a run without the retune is 12 * 10240; the kernel launches per
+   executor thread are exact (line A 4 per block, 6 after the insert; line
+   B 4 per block); both surgery handles complete without error. Samples/s
+   of the plain slice through ``Pipe`` at lookahead 1 and 4 and at
+   ``batch_blocks=4``;
+9. dispatch cost of the streaming runtime on the card (BASELINE configs 1
+   and 2): a mono 512-frame mock source -> gain -> mock sink, microseconds
+   per block at ``batch_blocks`` 1 and 32; a stereo gain + mix under 50
+   live pushes, blocks per second.
 
-Then one JSON line with each kernel's launches on the main path, error and
-times, and last ``{"ok": true, "device": {...}}``. Any failure raises, so
-the exit code is non-zero and no result line is printed.
+Then one JSON line with each kernel's launches on each path, error and
+times, and last ``{"ok": true, "device": {...}}``. Any failure raises (an
+executor thread's failure reaches ``Pipe.wait``), so the exit code is
+non-zero and no result line is printed.
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -86,11 +104,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def eq_sos():
+def eq_sos(peak_db: float = 3.0):
     """The slice's EQ: a peaking section at 1 kHz and a high shelf at 8 kHz."""
     from pipe_tpu_torch import ops
 
-    return np.stack([ops.design_peaking_eq(SR_OUT, 1000, 1.0, 3.0),
+    return np.stack([ops.design_peaking_eq(SR_OUT, 1000, 1.0, peak_db),
                      ops.design_highshelf(SR_OUT, 8000, -2.0)])
 
 
@@ -178,16 +196,21 @@ def check_flagship(dev, n_chunks: int = 4) -> dict:
     return res
 
 
-def slice_line(port, x, out: list, fed: list):
+def slice_line(port, x, out: list, fed: list, gate=None):
     """The slice's line over the host array ``x``: a host feed, FIR(255),
     44.1k->48k resampler, the two-section biquad EQ, a 64->2 mix, and a
-    host receive collecting into ``out``. ``fed`` counts fed blocks."""
+    host receive collecting into ``out``. ``fed`` counts fed blocks; the
+    feed waits for ``gate`` (a ``threading.Event``) when one is given.
+    Returns the line and its EQ."""
     from pipe_tpu_torch import ops
 
     C, N = x.shape
     pos = [0]
+    eq = ops.Biquad(eq_sos())
 
     def feed(block_size):
+        if gate is not None and not gate.wait(60):
+            raise RuntimeError("feed gate never opened")
         if pos[0] >= N:
             return None
         chunk = x[:, pos[0]: pos[0] + block_size]
@@ -208,16 +231,16 @@ def slice_line(port, x, out: list, fed: list):
         processors=[
             ops.FIR(ops.design_lowpass(255, 4000, SR_IN)).processor(),
             ops.Resampler(SR_OUT, SR_IN).processor(),
-            ops.Biquad(eq_sos()).processor(),
+            eq.processor(),
             ops.ChannelMix(np.ones((2, C)) / C).processor(),
         ],
         sink=sink,
-    )
+    ), eq
 
 
 def run_slice(port, x, device):
     out, fed = [], []
-    port.run(BLOCK, slice_line(port, x, out, fed), device=device)
+    port.run(BLOCK, slice_line(port, x, out, fed)[0], device=device)
     return np.concatenate(out, axis=1), len(fed)
 
 
@@ -239,6 +262,170 @@ def slice_oracle(x):
                              axis=1)[:, :n_out]
     y = scipy.signal.sosfilt(f32(eq_sos()), y, axis=1)
     return f32(np.ones((2, C)) / C) @ y
+
+
+RETUNE_AT, INSERT_AT, ADD_AFTER, B_BLOCKS = 12, 24, 8, 20
+
+
+def wait_until(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"timed out waiting for {what}")
+        time.sleep(0.001)
+
+
+def surgery_scenario(port, x, device, lookahead: int = 4,
+                     retune: bool = True):
+    """Phase 8's scenario: the slice (line A) in ``Pipe(9408, lookahead)``
+    on ``device``, its feed held until the targeted surgery is queued; the
+    EQ retuned (peak -3 dB) at block 12, a 200 Hz low shelf inserted before
+    the mix at block 24, and after block 8 a second line (B) added live.
+    Returns line A's and line B's outputs."""
+    from pipe_tpu_torch import mock, ops
+
+    out_a, gate = [], threading.Event()
+    line_a, eq = slice_line(port, x, out_a, [], gate=gate)
+    p = port.Pipe(BLOCK, line_a, lookahead=lookahead, device=device)
+    p.start()
+    targets = [INSERT_AT]
+    if retune:
+        p.push(eq.set_sos(eq_sos(-3.0)), at_block=RETUNE_AT)
+        targets = [RETUNE_AT, INSERT_AT]
+    shelf = ops.Biquad(ops.design_lowshelf(SR_OUT, 200, -2.0))
+    h_insert = p.insert_processor(0, 3, shelf.processor(), at_block=INSERT_AT)
+    dest = p._exec_of_route[0].dest
+    wait_until(lambda: sorted(dest.pending_targets()) == targets,
+               "the targeted surgery to reach line A")
+    gate.set()
+    wait_until(lambda: len(out_a) >= ADD_AFTER or not p._running,
+               f"{ADD_AFTER} blocks of line A")
+    sink_b = mock.Sink()
+    h_add = p.add_line(port.Line(
+        source=mock.Source(value=0.25, channels=CHANNELS,
+                           sample_rate=float(SR_IN),
+                           limit=B_BLOCKS * BLOCK).source(),
+        processors=[ops.Resampler(SR_OUT, SR_IN).processor(),
+                    ops.Biquad(eq_sos()).processor()],
+        sink=sink_b.sink()))
+    for name, h in (("insert_processor", h_insert), ("add_line", h_add)):
+        require(h.wait(60), f"{name} handle completed")
+        require(h.error is None, f"{name} handle error {h.error!r}")
+    p.wait(300)  # raises the first executor-thread error
+    return np.concatenate(out_a, axis=1), sink_b.values
+
+
+def pipe_rate(port, x, device, lookahead: int, batch_blocks: int) -> float:
+    """Input samples/s of the plain slice through ``Pipe`` on ``device``
+    (host clock from ``start`` to the end of ``wait``, synchronized)."""
+    import torch
+
+    out = []
+    p = port.Pipe(BLOCK, slice_line(port, x, out, [])[0], device=device,
+                  lookahead=lookahead, batch_blocks=batch_blocks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.start()
+    p.wait(300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(sum(a.shape[1] for a in out) == SR_IN * SECONDS * 160 // 147,
+            "Pipe rate run output length")
+    return x.size / wall
+
+
+def check_pipe_slice(port, dev, x) -> dict:
+    """Phase 8 (see the module docstring)."""
+    import torch
+
+    from pipe_tpu_torch import kernels
+    from pipe_tpu_torch.signal import snr_db
+
+    n_out = SR_IN * SECONDS * 160 // 147
+    blocks = -(-x.shape[1] // BLOCK)
+    surgery_scenario(port, x[:, : 30 * BLOCK], dev)  # warm-up
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    y4, b4 = surgery_scenario(port, x, dev, lookahead=4)
+    wall = time.perf_counter() - t0
+    by_thread = kernels.launch_counts(by_thread=True)
+    launches = {t: c["iir_tiles"] for t, c in by_thread.items()}
+    want_a = 4 * blocks + 2 * (blocks - INSERT_AT)
+    want = {"pipe-exec-line0": want_a, "pipe-exec-line1": 4 * B_BLOCKS}
+    require(launches == want, f"iir_tiles launches per thread {launches} != {want}")
+    require(y4.shape == (2, n_out), f"line A output {y4.shape} != (2, {n_out})")
+    require(b4.shape == (CHANNELS, B_BLOCKS * 10240), f"line B output {b4.shape}")
+    require(np.isfinite(y4).all() and np.isfinite(b4).all(), "outputs finite")
+
+    y1, b1 = surgery_scenario(port, x, dev, lookahead=1)
+    la_diff = float(np.max(np.abs(y4 - y1)))
+    la_db = snr_db(y1, y4)
+    require(la_db >= 120, f"lookahead 4 vs 1 on the card {la_db:.1f} dB")
+    require(np.array_equal(b4, b1), "line B at lookahead 4 vs 1")
+
+    y_keep, _ = surgery_scenario(port, x, dev, retune=False)
+    differs = np.flatnonzero(np.any(y_keep != y4, axis=0))
+    first = int(differs[0]) if differs.size else -1
+    require(first == RETUNE_AT * 10240,
+            f"first sample changed by the retune {first} != {RETUNE_AT * 10240}")
+
+    t_cpu = time.perf_counter()
+    yc, bc = surgery_scenario(port, x, torch.device("cpu"))
+    t_cpu = time.perf_counter() - t_cpu
+    cpu_db, cpu_b_db = snr_db(yc, y4), snr_db(bc, b4)
+    require(cpu_db >= 100, f"line A card vs CPU port {cpu_db:.1f} dB")
+    require(cpu_b_db >= 100, f"line B card vs CPU port {cpu_b_db:.1f} dB")
+
+    rates = {}
+    for la, bb in ((1, 1), (4, 1), (1, 4), (1, 4), (4, 1), (1, 1)):
+        rates.setdefault(f"lookahead {la} batch_blocks {bb}", []).append(
+            pipe_rate(port, x, dev, la, bb))
+    return {"launches": launches, "la_db": la_db, "la_diff": la_diff,
+            "first": first, "cpu_db": cpu_db, "cpu_b_db": cpu_b_db,
+            "wall": wall, "cpu_wall": t_cpu, "rates": rates}
+
+
+def check_dispatch(port, dev) -> dict:
+    """Phase 9: BASELINE configs 1 and 2 through the port's runtime on the
+    card (no kernel on this path)."""
+    import torch
+
+    from pipe_tpu_torch import mock, ops
+
+    res = {}
+    blocks, block = 2000, 512
+    for bb in (1, 32):
+        for timed in (False, True):  # warm-up, then timed
+            src = mock.Source(value=1.0, channels=1, limit=blocks * block)
+            sink = mock.Sink(discard=True)
+            line = port.Line(source=src.source(), sink=sink.sink(),
+                             processors=[ops.Gain(0.5).processor()])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            port.run(block, line, lookahead=32, batch_blocks=bb, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            require(sink.samples == blocks * block, "config 1 samples")
+        res[f"config1 batch_blocks {bb} us/block"] = dt / blocks * 1e6
+
+    blocks = 1000
+    src = mock.Source(value=1.0, channels=2, limit=blocks * block)
+    sink = mock.Sink(discard=True)
+    g = ops.Gain(1.0)
+    mx = ops.ChannelMix(np.eye(2, dtype=np.float32))
+    p = port.Pipe(block, port.Line(source=src.source(), sink=sink.sink(),
+                                   processors=[g.processor(), mx.processor()]),
+                  lookahead=32, device=dev)
+    t0 = time.perf_counter()
+    p.start()
+    for i in range(50):
+        p.push(g.set_gain(1.0 - i * 0.01))
+    p.wait(600)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require(sink.samples == blocks * block, "config 2 samples")
+    res["config2 blocks/s (50 pushes)"] = blocks / dt
+    return res
 
 
 def main() -> None:
@@ -321,13 +508,34 @@ def main() -> None:
            f"{f64_db:.1f} dB, {wall:.3f} s wall = {rate:.4g} samples/s "
            f"({SECONDS / wall:.1f}x real time) on {card}")
 
+    pres = check_pipe_slice(port, dev, x)
+    la_rates = ", ".join(f"{k}: " + " / ".join(f"{r:.4g}" for r in v)
+                         for k, v in pres["rates"].items())
+    say(8, f"slice through Pipe(lookahead=4) with live retune@{RETUNE_AT}, "
+           f"insert@{INSERT_AT}, add_line after block {ADD_AFTER}: line A "
+           f"(2, {SR_IN * SECONDS * 160 // 147}), iir_tiles launches per "
+           f"thread {pres['launches']}, vs CPU port {pres['cpu_db']:.1f} dB "
+           f"(line B {pres['cpu_b_db']:.1f} dB), lookahead 4 vs 1 "
+           f"{pres['la_db']:.1f} dB (max abs diff {pres['la_diff']:.3g}), "
+           f"retune lands at output sample {pres['first']}; scenario wall "
+           f"{pres['wall']:.3f} s (CPU {pres['cpu_wall']:.1f} s); plain slice "
+           f"through Pipe, samples/s: {la_rates}; on {card}")
+
+    dres = check_dispatch(port, dev)
+    say(9, "dispatch: " + ", ".join(f"{k} {v:.1f}" for k, v in dres.items())
+        + f"; on {card}")
+
     main_shape = kres[KERNEL_SHAPES[-1]]
+    by_path = {"run (phase 7)": launches["iir_tiles"],
+               "Pipe line A (phase 8)": pres["launches"]["pipe-exec-line0"],
+               "Pipe line B (phase 8)": pres["launches"]["pipe-exec-line1"]}
     print(json.dumps({"kernels": [{
         "name": "iir_tiles",
         "route": "cuda",
         "source": "pipe_tpu_torch/csrc/iir_tiles.cu",
         "replaces": "pipe_tpu/ops/biquad.py:92",
-        "launches": launches["iir_tiles"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -12,7 +12,10 @@ operations pinned to IEEE FP32.
 
 This package imports no JAX. Ported so far: the streaming main path (FIR,
 polyphase resampler, fused FIR+resampler, biquad EQ, gain, mix, the
-flagship chunk function, and the blocking ``run`` driver).
+flagship chunk function), the runtime (the blocking ``run`` driver and the
+async ``Pipe`` with live ``push``/``at_block``, ``insert_processor`` and
+``add_line``, ``lookahead`` and ``batch_blocks``), the ``mock`` test kit,
+``StatsRecorder``/``trace``, ``process`` and ``checkpoint``.
 """
 
 from pipe_tpu_torch.signal import (
@@ -39,13 +42,17 @@ from pipe_tpu_torch.components import (
     SinkAllocatorFunc,
 )
 from pipe_tpu_torch.graph import Line, Processors
-from pipe_tpu_torch.runtime import run
-from pipe_tpu_torch import config
+from pipe_tpu_torch.runtime import Pipe, run, wait
+from pipe_tpu_torch.profiling import StatsRecorder, trace
+from pipe_tpu_torch.offline import process
+from pipe_tpu_torch import checkpoint, config, mock
 
 __version__ = "0.1.0"
 
 __all__ = [
     "config",
+    "checkpoint",
+    "mock",
     "Signal",
     "SignalProperties",
     "silence",
@@ -65,5 +72,10 @@ __all__ = [
     "SinkAllocatorFunc",
     "Line",
     "Processors",
+    "Pipe",
     "run",
+    "wait",
+    "StatsRecorder",
+    "trace",
+    "process",
 ]

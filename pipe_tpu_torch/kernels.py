@@ -9,7 +9,9 @@ hash of the sources and flags), and bound with ``ctypes``. A missing
 Each wrapper checks its inputs and raises on what the kernel does not take,
 launches on ``torch.cuda.current_stream()``, raises if the launch reports a
 CUDA error, and counts its launches in a module-level integer
-(``iir_tiles_launches``), so a run can show that it went through the kernel.
+(``iir_tiles_launches``) and per launching thread (:func:`launch_counts`),
+so a run can show that it went through the kernel. Executor threads launch
+kernels concurrently: the build and the counts are under locks.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -38,6 +41,9 @@ IIR_MIN_B = 2048
 iir_tiles_launches = 0
 
 _lib = None
+_lib_lock = threading.RLock()  # one build and one load per process
+_count_lock = threading.Lock()
+_thread_launches: dict = {}  # thread name -> {kernel name: launches}
 
 
 def find_nvcc() -> str:
@@ -70,27 +76,35 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    Raises ``RuntimeError`` with the compiler's output on failure."""
-    out = library_path()
-    if out.exists():
+    Raises ``RuntimeError`` with the compiler's output on failure. Threads
+    of one process build one at a time; separate processes may build at
+    once, each into its own temporary file."""
+    with _lib_lock:
+        out = library_path()
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(
+            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {res.returncode}:\n"
+                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: other processes never see a partial file
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n"
-            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    return out
 
 
 def _library():
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
         lib = ctypes.CDLL(str(build()))
         p = ctypes.c_void_p
         lib.pipe_iir_tiles.argtypes = [p, p, p, p, p, ctypes.c_int,
@@ -99,7 +113,7 @@ def _library():
         lib.pipe_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pipe_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
-    return _lib
+        return _lib
 
 
 def _check_launch(lib, err: int, name: str) -> None:
@@ -140,16 +154,33 @@ def iir_tiles(v: torch.Tensor, s: torch.Tensor, a1: torch.Tensor,
         err = lib.pipe_iir_tiles(v.data_ptr(), s.data_ptr(), a1.data_ptr(),
                                  a2.data_ptr(), y.data_ptr(), C, B, stream)
     _check_launch(lib, err, "iir_tiles")
-    iir_tiles_launches += 1
+    _count("iir_tiles")
     return y
+
+
+def _count(name: str) -> None:
+    """Add one launch of kernel ``name``, in total and for this thread."""
+    global iir_tiles_launches
+    thread = threading.current_thread().name
+    with _count_lock:
+        iir_tiles_launches += 1
+        per = _thread_launches.setdefault(thread, {})
+        per[name] = per.get(name, 0) + 1
 
 
 def reset_counts() -> None:
     """Set every launch count to 0."""
     global iir_tiles_launches
-    iir_tiles_launches = 0
+    with _count_lock:
+        iir_tiles_launches = 0
+        _thread_launches.clear()
 
 
-def launch_counts() -> dict:
-    """Launch count of each kernel since the last :func:`reset_counts`."""
-    return {"iir_tiles": iir_tiles_launches}
+def launch_counts(by_thread: bool = False) -> dict:
+    """Launch count of each kernel since the last :func:`reset_counts`;
+    with ``by_thread``, ``{thread name: {kernel: count}}`` instead (the
+    Pipe names each executor thread after the line it runs)."""
+    with _count_lock:
+        if by_thread:
+            return {t: dict(c) for t, c in _thread_launches.items()}
+        return {"iir_tiles": iir_tiles_launches}

@@ -205,7 +205,7 @@ class Biquad:
             raise NotImplementedError(
                 "precision='extended' (double-f32) is not ported yet"
             )
-        self._sos = param_tensor(self._normalize(sos))
+        self._sos, self._sos_lo = self._split(self._normalize(sos))
         self._refine = bool(refine)
         self._component = None
         self.context = None
@@ -218,6 +218,16 @@ class Biquad:
         if sos.shape[-1] != 6:
             raise ValueError("sos rows must be [b0 b1 b2 a0 a1 a2]")
         return sos / sos[:, 3:4]
+
+    @staticmethod
+    def _split(sos64):
+        """float64 SOS -> float32 (hi, lo) with hi + lo == sos to f32-pair
+        precision. The default path filters with hi; lo rides along as the
+        ``sos_lo`` param so the param trees (and checkpoint keys) match the
+        JAX package's, whose extended path reads it."""
+        hi = sos64.astype(np.float32)
+        lo = (sos64 - hi.astype(np.float64)).astype(np.float32)
+        return param_tensor(hi), param_tensor(lo)
 
     def processor(self):
         def alloc(mctx, block_size, props):
@@ -235,7 +245,8 @@ class Biquad:
                 step=step,
                 state=biquad_init_state(props.channels, self.n_sections,
                                         props.device),
-                params={"sos": self._sos.to(props.device)},
+                params={"sos": self._sos.to(props.device),
+                        "sos_lo": self._sos_lo.to(props.device)},
             )
             return self._component
 
@@ -246,11 +257,12 @@ class Biquad:
         return int(self._sos.shape[0])
 
     def set_sos(self, sos):
-        new = self._normalize(sos)
+        hi, lo = self._split(self._normalize(sos))
 
         def fn():
-            cur = self._component.get_param("sos")
-            self._component.set_param("sos", param_tensor(new, cur.device))
+            dev = self._component.get_param("sos").device
+            self._component.set_param("sos", hi.to(dev))
+            self._component.set_param("sos_lo", lo.to(dev))
 
         return self.context.mutate(fn)
 

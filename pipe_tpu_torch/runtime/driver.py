@@ -66,19 +66,28 @@ def run(block_size: int, *lines: Line, stats=None, lookahead: int = 1,
     by a single :class:`MultiLineExecutor` in the calling thread.
 
     ``device`` is where the lines' streams live (default: the device each
-    source declares, else ``torch.get_default_device()``). ``cancel`` is an
+    source declares, else ``torch.get_default_device()``). ``stats`` is an
+    optional :class:`pipe_tpu_torch.StatsRecorder`. ``cancel`` is an
     optional ``threading.Event``: setting it stops the run at the next
-    block boundary with flush hooks run. ``stats``, ``lookahead``,
-    ``batch_blocks``, ``mesh`` and ``optimize`` keep the JAX package's
-    signature; anything but their defaults raises ``NotImplementedError``.
+    block boundary with flush hooks run. ``lookahead`` keeps that many
+    dispatches in flight before resolving the oldest; ``batch_blocks=k``
+    enqueues k blocks per dispatch (mutation granularity coarsens to k
+    unless targeted with ``at_block``). ``mesh`` and ``optimize`` keep the
+    JAX package's signature and raise ``NotImplementedError``.
     """
-    refuse_unported(stats=stats, lookahead=lookahead,
-                    batch_blocks=batch_blocks, mesh=mesh, optimize=optimize)
+    refuse_unported(mesh=mesh, optimize=optimize)
     mctx = mutable.mutable()
     mle = MultiLineExecutor(context=mctx)
-    for line in lines:
+    for i, line in enumerate(lines):
         bound = Line(source=line.source, processors=line.processors,
                      sink=line.sink, context=mctx)
         route = make_route(bound, block_size, device)
-        mle.executors.append(LineExecutor(route, block_size))
+        ls = None
+        if stats is not None:
+            ls = stats.line(f"line{i}", block_size,
+                            route.source.output.channels)
+        mle.executors.append(
+            LineExecutor(route, block_size, stats=ls, lookahead=lookahead,
+                         batch_blocks=batch_blocks)
+        )
     run_executor(mle, cancel=cancel)

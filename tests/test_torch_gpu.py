@@ -4,14 +4,18 @@ the CPU. The file imports no JAX, so it runs on a card machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 (``--noconftest`` because tests/conftest.py sets up JAX.) The CPU checks of
-the kernel wrapper's input validation run everywhere."""
+the kernel wrapper's input validation and of the kernel module's thread
+safety run everywhere."""
+
+import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
 
 import pipe_tpu_torch
-from pipe_tpu_torch import config, kernels, ops
+from pipe_tpu_torch import checkpoint, config, kernels, mock, ops
 from pipe_tpu_torch.ops.biquad import _iir_apply
 from pipe_tpu_torch.signal import SignalProperties, snr_db
 
@@ -113,3 +117,215 @@ def test_slice_line_on_card_matches_cpu(cuda):
         outs[device.type] = np.concatenate(got, 1)
     assert outs["cuda"].shape == outs["cpu"].shape
     assert snr_db(outs["cpu"], outs["cuda"]) > 100
+
+
+# -- the kernel module under threads ------------------------------------------
+
+
+def test_library_builds_once_under_threads(monkeypatch):
+    """8 threads asking for the library at once: one build, one load, one
+    library object (``build`` and ``CDLL`` stubbed)."""
+    builds, loads = [], []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    def fake_build():
+        builds.append(threading.current_thread().name)
+        threading.Event().wait(0.05)  # a slow compiler widens the race
+        return kernels.BUILD_DIR / "fake.so"
+
+    def fake_cdll(path):
+        loads.append(path)
+        return FakeLib()
+
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "build", fake_build)
+    monkeypatch.setattr(kernels.ctypes, "CDLL", fake_cdll)
+    got, start = [], threading.Barrier(8)
+
+    def worker():
+        start.wait(10)
+        got.append(kernels._library())
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(builds) == 1 and len(loads) == 1
+    assert len(got) == 8 and all(g is got[0] for g in got)
+
+
+def test_launch_counts_exact_under_threads():
+    """8 threads counting 2,000 launches each with a short switch interval:
+    no increment is lost, in total or per thread."""
+    kernels.reset_counts()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [kernels._count("iir_tiles") for _ in range(2000)],
+            name=f"counter{i}") for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert kernels.launch_counts() == {"iir_tiles": 16000}
+    per = kernels.launch_counts(by_thread=True)
+    assert {t: per[t]["iir_tiles"] for t in per} == {
+        f"counter{i}": 2000 for i in range(8)}
+    kernels.reset_counts()
+    assert kernels.launch_counts() == {"iir_tiles": 0}
+    assert kernels.launch_counts(by_thread=True) == {}
+
+
+@pytest.mark.gpu
+def test_kernel_from_two_threads(cuda):
+    """Two threads launching the kernel at once: the exact launch count, and
+    outputs equal to the same launches from one thread."""
+    args = [_recurrence_inputs(cuda, 64, 10240, seed=s) for s in (4, 5)]
+    single = [kernels.iir_tiles(*a) for a in args]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    outs = {}
+
+    def worker(i):
+        outs[i] = [kernels.iir_tiles(*args[i]) for _ in range(20)]
+
+    threads = [threading.Thread(target=worker, args=(i,), name=f"k{i}")
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert kernels.launch_counts() == {"iir_tiles": 40}
+    assert kernels.launch_counts(by_thread=True) == {
+        "k0": {"iir_tiles": 20}, "k1": {"iir_tiles": 20}}
+    for i in range(2):
+        for y in outs[i]:
+            assert torch.equal(y, single[i])
+
+
+# -- the runtime on the card --------------------------------------------------
+
+
+def _slice_line(x, out, C, stop=None, start=0):
+    pos = [start]
+    end = x.shape[1] if stop is None else stop
+
+    def feed(n):
+        if pos[0] >= end:
+            return None
+        c = x[:, pos[0]: min(pos[0] + n, end)]
+        pos[0] += c.shape[1]
+        return c
+
+    return pipe_tpu_torch.Line(
+        source=lambda m, b: pipe_tpu_torch.Source(
+            output=SignalProperties(sample_rate=44100.0, channels=C), feed=feed),
+        processors=[
+            ops.FIR(ops.design_lowpass(255, 4000, 44100)).processor(),
+            ops.Resampler(48000, 44100).processor(),
+            ops.Biquad(np.stack([ops.design_peaking_eq(48000, 1000, 1.0, 3.0),
+                                 ops.design_highshelf(48000, 8000, -2.0)])).processor(),
+            ops.ChannelMix(np.ones((2, C)) / C).processor(),
+        ],
+        sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=out.append),
+    )
+
+
+@pytest.mark.gpu
+def test_run_knobs_on_card_match_lookahead_1(cuda):
+    """The slice at 64 channels through ``run`` with ``lookahead=4`` and
+    ``batch_blocks=4`` equals the one-block-in-flight run (the pinned
+    buffers are never reused under a pending copy)."""
+    C, block = 64, 147 * 64
+    x = np.random.default_rng(6).standard_normal((C, 12 * block + 999)).astype(np.float32)
+    outs = {}
+    for la, bb in ((1, 1), (4, 4), (4, 1)):
+        got = []
+        pipe_tpu_torch.run(block, _slice_line(x, got, C), device=cuda,
+                           lookahead=la, batch_blocks=bb)
+        outs[la, bb] = np.concatenate(got, 1)
+    base = outs[1, 1]
+    for key in ((4, 4), (4, 1)):
+        diff = float(np.max(np.abs(outs[key] - base)))
+        print(f"lookahead/batch {key} vs (1, 1): max abs diff {diff:.3g}")
+        assert outs[key].shape == base.shape
+        assert snr_db(base, outs[key]) >= 120
+
+
+@pytest.mark.gpu
+def test_card_checkpoint_continues_on_cpu(cuda, tmp_path):
+    """A checkpoint of a Pipe on the card restores into a CPU Pipe of the
+    same lines, which continues the stream to >= 100 dB of the card's own
+    continuation."""
+    C, block = 8, 2352
+    x = np.random.default_rng(8).standard_normal((C, 7 * block + 500)).astype(np.float32)
+    head, tail_card = [], []
+    stop = 3 * block
+    p = pipe_tpu_torch.Pipe(block, _slice_line(x, head, C, stop=stop),
+                            device=cuda, lookahead=4)
+    p.start()
+    p.wait(120)
+    path = tmp_path / "card.ckpt.npz"
+    checkpoint.snapshot(p).save(str(path))
+    p2 = pipe_tpu_torch.Pipe(block, _slice_line(x, tail_card, C, start=stop),
+                             device=cuda)
+    checkpoint.restore(p2, checkpoint.load(str(path)))
+    p2.start()
+    p2.wait(120)
+    tail_cpu = []
+    p3 = pipe_tpu_torch.Pipe(block, _slice_line(x, tail_cpu, C, start=stop),
+                             device="cpu")
+    checkpoint.restore(p3, checkpoint.load(str(path)))
+    assert p3.routes[0].processors[0].state["tail"].device.type == "cpu"
+    p3.start()
+    p3.wait(120)
+    card, cpu = np.concatenate(tail_card, 1), np.concatenate(tail_cpu, 1)
+    assert card.shape == cpu.shape
+    assert snr_db(card, cpu) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lookahead,batch_blocks", [(8, 1), (2, 4)])
+def test_pinned_buffers_not_reused_in_flight(cuda, lookahead, batch_blocks):
+    """A device slower than the host (each block spins ~1 ms on the card
+    first) keeps copies queued behind the host: a pinned staging buffer
+    handed out again before its copy ran would corrupt a block. The output
+    must equal the input exactly."""
+    C, block, n_blocks = 8, 4096, 48
+    x = np.random.default_rng(9).standard_normal((C, n_blocks * block)).astype(np.float32)
+
+    def slow(mctx, b, props):
+        def step(state, params, sig):
+            torch.cuda._sleep(2_000_000)
+            return state, sig
+
+        return pipe_tpu_torch.Processor(output=props, step=step)
+
+    out, pos = [], [0]
+
+    def feed(n):
+        if pos[0] >= x.shape[1]:
+            return None
+        pos[0] += n
+        return x[:, pos[0] - n: pos[0]]
+
+    pipe_tpu_torch.run(block, pipe_tpu_torch.Line(
+        source=lambda m, b: pipe_tpu_torch.Source(
+            output=SignalProperties(sample_rate=1.0, channels=C), feed=feed),
+        processors=[slow],
+        sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=out.append)),
+        device=cuda, lookahead=lookahead, batch_blocks=batch_blocks)
+    np.testing.assert_array_equal(np.concatenate(out, 1), x)

@@ -1,7 +1,9 @@
 """The port's streaming runtime: the slice's line (FIR -> resampler ->
-biquad EQ -> mix) through ``pipe_tpu_torch.run`` against ``pipe_tpu.run``,
-and the lifecycle contracts of the reference's test matrix
-(``pipe_test.go:191-459``) on the port's executor."""
+biquad EQ -> mix) through ``pipe_tpu_torch.run`` against ``pipe_tpu.run``
+(also with ``lookahead``, ``batch_blocks`` and ``stats``), ``process``
+against ``pipe_tpu.process``, and the lifecycle contracts of the
+reference's test matrix (``pipe_test.go:191-459``) on the port's
+executor."""
 
 import threading
 
@@ -140,9 +142,8 @@ def test_start_error_rolls_back_started_components():
 
 
 @pytest.mark.parametrize(
-    "knob", [{"lookahead": 2}, {"batch_blocks": 4}, {"mesh": object()},
-             {"optimize": True}, {"stats": object()}],
-    ids=["lookahead", "batch_blocks", "mesh", "optimize", "stats"],
+    "knob", [{"mesh": object()}, {"optimize": True}],
+    ids=["mesh", "optimize"],
 )
 def test_unported_knobs_raise(knob):
     hooks = [Hooks(), Hooks(), Hooks()]
@@ -255,3 +256,144 @@ def test_cpu_run_launches_no_kernel():
     x = np.random.default_rng(31).standard_normal((C, BLOCK)).astype(np.float32)
     stream(pipe_tpu_torch, slice_processors(tops, C), x, BLOCK)
     assert kernels.iir_tiles_launches == before
+
+
+@pytest.mark.parametrize("lookahead,batch_blocks", [(4, 1), (1, 4), (4, 4)])
+def test_slice_line_knobs_match_jax(lookahead, batch_blocks):
+    """The slice under the dispatch knobs: the same output as the JAX
+    package's default run (>= 100 dB), and exactly the port's own
+    one-block-per-dispatch output."""
+    x = np.random.default_rng(33).standard_normal(
+        (C, 6 * BLOCK + 700)).astype(np.float32)
+    ref = stream(pipe_tpu, slice_processors(jops, C), x, BLOCK)
+    base = stream(pipe_tpu_torch, slice_processors(tops, C), x, BLOCK)
+    got = []
+    pos = [0]
+
+    def feed(n):
+        if pos[0] >= x.shape[1]:
+            return None
+        pos[0] += n
+        return x[:, pos[0] - n: pos[0]]
+
+    stats = pipe_tpu_torch.StatsRecorder()
+    pipe_tpu_torch.run(BLOCK, Line(
+        source=lambda m, b: pipe_tpu_torch.Source(
+            output=SignalProperties(44100.0, C), feed=feed),
+        processors=slice_processors(tops, C),
+        sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=got.append)),
+        lookahead=lookahead, batch_blocks=batch_blocks, stats=stats)
+    got = np.concatenate(got, 1)
+    assert got.shape == ref.shape
+    assert snr_db(ref, got) > 100
+    np.testing.assert_array_equal(got, base)
+    ls = stats.lines["line0"]
+    # 6 full blocks + 1 partial + the call that finds the feed's EOF, as
+    # the JAX package counts them
+    assert ls.blocks == 8 and ls.wall_s > 0
+    assert "line0: 8 blocks" in stats.report()
+
+
+def test_stats_count_blocks_not_dispatches():
+    """One dispatch of a 4-block batch counts 4 blocks. The mock source's
+    EOF is a host bool, so the count stops at the last block (the JAX
+    package scans whole batches past EOF and counts 12)."""
+    stats = pipe_tpu_torch.StatsRecorder()
+    src = pipe_tpu_torch.mock.Source(channels=2, limit=10 * 64)
+    pipe_tpu_torch.run(64, Line(source=src.source(),
+                                sink=pipe_tpu_torch.mock.Sink().sink()),
+                       batch_blocks=4, stats=stats)
+    assert stats.total_blocks == 10
+    assert stats.lines["line0"].frames == 10 * 64
+
+
+@pytest.mark.parametrize("block_size", [2352, 1000])
+def test_process_matches_jax(block_size):
+    """``process`` (device source over the whole array, lookahead 8) gives
+    ``pipe_tpu.process``'s output: the slice at the tiled block and at a
+    block off every fast path."""
+    x = np.random.default_rng(34).standard_normal((C, 9000)).astype(np.float32)
+    ref = pipe_tpu.process(x, slice_processors(jops, C), block_size=block_size)
+    got = pipe_tpu_torch.process(x, slice_processors(tops, C),
+                                 block_size=block_size)
+    assert got.shape == ref.shape == (2, -(-9000 * 160 // 147))
+    assert snr_db(ref, got) > 100
+
+
+def test_process_empty_and_mono():
+    y = pipe_tpu_torch.process(np.zeros(0, np.float32),
+                               [tops.Gain(2.0).processor()])
+    assert y.shape == (1, 0)
+    y = pipe_tpu_torch.process(np.arange(10.0), [tops.Gain(2.0).processor()],
+                               block_size=4)
+    np.testing.assert_array_equal(y, 2.0 * np.arange(10.0)[None, :])
+
+
+def test_device_source_with_device_eof_flag_gates_state(monkeypatch):
+    """A device source whose ``eof`` is a 0-d bool tensor on the card: the
+    block runs, its states are gated with ``torch.where`` and the flag is
+    resolved with the output. Simulated on the CPU by routing the flag
+    through the card path: the EOF step's state is not committed and
+    nothing after it reaches the sink."""
+    from pipe_tpu_torch.runtime import executor as ex
+
+    limit, block = 1000, 256
+    got = []
+    gated = []
+    monkeypatch.setattr(ex, "_gate", lambda eof, new, old: gated.append(1)
+                        or (old if bool(eof) else new))
+
+    class CardFlag(torch.Tensor):
+        is_cuda = True
+
+    def src(mctx, b):
+        def step(state, params):
+            n = state["sent"]
+            frames = max(0, min(b, limit - n))
+            eof = torch.tensor(frames <= 0).as_subclass(CardFlag)
+            return {"sent": n + b}, Signal(torch.full((1, b), float(n)),
+                                           frames), eof
+
+        return pipe_tpu_torch.Source(
+            output=SignalProperties(sample_rate=1.0, channels=1), step=step,
+            state={"sent": 0})
+
+    route = make_route(Line(source=src, sink=lambda m, b, p:
+                            pipe_tpu_torch.Sink(receive=got.append)), block)
+    le = LineExecutor(route, block, lookahead=3)
+    monkeypatch.setattr(le, "_stage", lambda sig, eof: _cpu_stage(le, sig, eof))
+    run_executor(MultiLineExecutor(executors=[le]))
+    assert [a.shape[1] for a in got] == [256, 256, 256, 232]
+    assert route.source.state == {"sent": 1024}  # EOF blocks gated out
+    # 4 blocks + 3 dispatched past EOF before the flag resolved (lookahead
+    # 3), each gating the source's and the sink's state
+    assert len(gated) == 2 * 7
+
+
+def _cpu_stage(le, sig, eof):
+    """``LineExecutor._stage`` with the EOF flag copied to a host tensor (the
+    card path copies it into pinned memory)."""
+    from pipe_tpu_torch.runtime.executor import _Block
+
+    blk = _Block(sig.frames)
+    if sig.frames > 0:
+        blk.out = sig.data
+    if eof is not None:
+        blk.eof = torch.tensor(bool(eof))
+    return blk
+
+
+def test_gate_selects_leafwise():
+    """``_gate`` keeps the old tree where the flag is set: tensor leaves by
+    ``torch.where``, host leaves by the flag's value."""
+    from pipe_tpu_torch.runtime.executor import _gate
+
+    old = {"a": torch.zeros(2), "n": 3, "k": 1, "none": None}
+    new = {"a": torch.ones(2), "n": 3, "k": 2, "none": None}
+    kept = _gate(torch.tensor(True), new, old)
+    assert torch.equal(kept["a"], old["a"]) and kept["k"] == 1
+    moved = _gate(torch.tensor(False), new, old)
+    assert torch.equal(moved["a"], new["a"]) and moved["k"] == 2
+    assert kept["none"] is None and moved["n"] == 3
+    with pytest.raises(ValueError, match="structure"):
+        _gate(torch.tensor(False), {"a": 1}, {"b": 1})
