@@ -10,12 +10,15 @@ block on the line's device. The biquad recurrence runs in a CUDA kernel
 written for Hopper (``pipe_tpu_torch/csrc/``); the other ops are PyTorch
 operations pinned to IEEE FP32.
 
-This package imports no JAX. Ported so far: the streaming main path (FIR,
-polyphase resampler, fused FIR+resampler, biquad EQ, gain, mix, the
-flagship chunk function), the runtime (the blocking ``run`` driver and the
-async ``Pipe`` with live ``push``/``at_block``, ``insert_processor`` and
-``add_line``, ``lookahead`` and ``batch_blocks``), the ``mock`` test kit,
-``StatsRecorder``/``trace``, ``process`` and ``checkpoint``.
+This package imports no JAX. Ported so far: the whole op kit of
+:mod:`pipe_tpu.ops` (FIR, polyphase resampler, biquad EQ in float32 and
+double-f32, gain, mix, overlap-save convolution, delay/compressor/gate,
+STFT gain and gate, channelizer, oscillator and demodulators, and the
+fused stages), the fusion optimizer (``optimize.fuse``, ``optimize=True``),
+the flagship chunk function, the runtime (the blocking ``run`` driver and
+the async ``Pipe`` with live ``push``/``at_block``, ``insert_processor``
+and ``add_line``, ``lookahead`` and ``batch_blocks``), the ``mock`` test
+kit, ``StatsRecorder``/``trace``, ``process`` and ``checkpoint``.
 """
 
 from pipe_tpu_torch.signal import (
@@ -45,7 +48,7 @@ from pipe_tpu_torch.graph import Line, Processors
 from pipe_tpu_torch.runtime import Pipe, run, wait
 from pipe_tpu_torch.profiling import StatsRecorder, trace
 from pipe_tpu_torch.offline import process
-from pipe_tpu_torch import checkpoint, config, mock
+from pipe_tpu_torch import checkpoint, config, mock, optimize
 
 __version__ = "0.1.0"
 
@@ -53,6 +56,7 @@ __all__ = [
     "config",
     "checkpoint",
     "mock",
+    "optimize",
     "Signal",
     "SignalProperties",
     "silence",

@@ -75,6 +75,11 @@ class _Component:
     def get_param(self, name: str):
         return self.params[name]
 
+    def replace_param(self, name: str, value) -> None:
+        """Replace a tensor parameter by a float32 copy of ``value`` on the
+        current one's device (the body of a live retune)."""
+        self.set_param(name, param_tensor(value, self.params[name].device))
+
     def update_state(self, fn: Callable[[Any], Any]) -> None:
         """Replace the live state tree via ``fn(old) -> new``. Must preserve
         the tree structure and leaf shapes/dtypes. Only call from a mutation

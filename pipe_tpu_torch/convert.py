@@ -1,16 +1,20 @@
 """Carry component parameters and stream state between the JAX package and
 the port.
 
-Both packages use the same parameter names (``taps``, ``hp``,
-``taps``/``hp_base``, ``sos``/``sos_lo``, ``matrix``, ``gain``) and state
-names (``tail``, ``hist``/``off``, ``x_tail``/``s``), so a JAX component's
+Every op of the port uses the JAX op's parameter names (``taps``, ``hp``,
+``sos``/``sos_lo``, ``matrix``, ``gain``, ``ir_spec``, ``gains``, ...) and
+state names, shapes and dtypes (``tail``; ``hist``/``off``;
+``x_tail``/``s``/``s_lo``; OLS ``prev``/``fdl``/``pos``; Delay
+``ring``/``pos`` or ``hist``; the envelope's ``env``/``env_lo``; spectral
+``hist``/``nres``/``tail``; channelizer ``hist``/``pend``/``pcnt``; the
+oscillator's ``n``; the FM discriminator's ``prev``), so a JAX component's
 ``params`` or ``state`` tree, after ``np.asarray`` on each leaf, maps onto
 the port's tree key for key. A JAX state taken mid-stream can then be
 continued by the port, and back.
 
-The one change of representation: a 0-d integer leaf (the resampler's phase
-offset ``off``) is a stream counter, which the port keeps on the host as a
-Python ``int``.
+The one change of representation: a 0-d integer leaf (a stream counter
+such as the resampler's phase offset ``off`` or the OLS ring head ``pos``)
+is kept by the port on the host as a Python ``int``.
 """
 
 from __future__ import annotations

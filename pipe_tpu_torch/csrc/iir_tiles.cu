@@ -17,9 +17,9 @@
 //
 // reading g from a zero-padded copy in shared memory so that the j loop
 // can run to the end of the warp's range (i | 31) without divergence. g,
-// alpha and beta are computed in the prologue from a1, a2 with the same f32
-// recurrence as pipe_tpu_torch.ops.biquad._iir_sequences (three threads, one
-// sequence each), so a call is a single launch.
+// alpha and beta are computed in the prologue from a1, a2 with the same
+// float64 recurrence as pipe_tpu_torch.ops.biquad._iir_sequences (three
+// threads, one sequence each), so a call is a single launch.
 //
 // What bounds it on an H100: latency, not bytes or FLOPs. The tile loop is
 // sequential, each tile costs every thread up to 256 dependent-free FMAs
@@ -59,15 +59,18 @@ iir_tiles_kernel(const float* __restrict__ v, const float* __restrict__ s,
   if (i < kQ - 1) gz[i] = 0.0f;
   if (i < 3) {
     // Values at n = 0 and n = -1: g (v = delta): 1, 0; alpha (y[-1] = 1):
-    // -a1, 1; beta (y[-2] = 1): -a2, 0. Rounded step by step, like the
-    // eager torch ops of the plain version.
-    float y1 = i == 0 ? 1.0f : (i == 1 ? -a1 : -a2);
-    float y2 = i == 1 ? 1.0f : 0.0f;
+    // -a1, 1; beta (y[-2] = 1): -a2, 0. In double, rounded step by step
+    // like the eager torch ops of the plain version, and each value rounded
+    // once to float: near DC the sequences grow from cancelling terms.
+    const double da1 = a1;
+    const double da2 = a2;
+    double y1 = i == 0 ? 1.0 : (i == 1 ? -da1 : -da2);
+    double y2 = i == 1 ? 1.0 : 0.0;
     float* out = i == 0 ? gz + (kQ - 1) : (i == 1 ? alpha : beta);
-    out[0] = y1;
+    out[0] = __double2float_rn(y1);
     for (int n = 1; n < kQ; ++n) {
-      const float yn = __fsub_rn(__fmul_rn(-a1, y1), __fmul_rn(a2, y2));
-      out[n] = yn;
+      const double yn = __dsub_rn(__dmul_rn(-da1, y1), __dmul_rn(da2, y2));
+      out[n] = __double2float_rn(yn);
       y2 = y1;
       y1 = yn;
     }

@@ -98,6 +98,7 @@ class FIR:
         if self._init_taps.ndim not in (1, 2):
             raise ValueError("taps must be (T,) or (C, T)")
         self._component = None
+        self._delegate = None  # set by pipe_tpu_torch.optimize.fuse
         self.context = None
 
     def processor(self):
@@ -125,9 +126,13 @@ class FIR:
             )
             return self._component
 
+        alloc.fusion_tag = ("fir", self)
         return alloc
 
     def set_taps(self, taps):
+        if self._delegate is not None:  # fused away by optimize.fuse
+            return self._delegate.set_taps(taps)
+
         def fn():
             cur = self._component.get_param("taps")
             self._component.set_param("taps", param_tensor(taps, cur.device))

@@ -23,6 +23,7 @@ class Gain:
     def __init__(self, gain=1.0):
         self._init_gain = gain
         self._component = None
+        self._delegate = None  # set by pipe_tpu_torch.optimize.fuse
         self.context = None
 
     def processor(self):
@@ -40,9 +41,13 @@ class Gain:
             )
             return self._component
 
+        alloc.fusion_tag = ("gain", self)
         return alloc
 
     def set_gain(self, gain):
+        if self._delegate is not None:  # folded away by optimize.fuse
+            return self._delegate.set_gain(gain)
+
         def fn():
             cur = self._component.get_param("gain")
             self._component.set_param("gain", param_tensor(gain, cur.device))

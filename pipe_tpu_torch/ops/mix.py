@@ -25,6 +25,7 @@ class ChannelMix:
         if self._init_matrix.ndim != 2:
             raise ValueError("mix matrix must be 2D (out_channels, in_channels)")
         self._component = None
+        self._delegate = None  # set by pipe_tpu_torch.optimize.fuse
         self.context = None
 
     def processor(self):
@@ -51,9 +52,13 @@ class ChannelMix:
             )
             return self._component
 
+        alloc.fusion_tag = ("mix", self)
         return alloc
 
     def set_matrix(self, matrix):
+        if self._delegate is not None:  # folded away by optimize.fuse
+            return self._delegate.set_matrix(matrix)
+
         def fn():
             cur = self._component.get_param("matrix")
             self._component.set_param("matrix", param_tensor(matrix, cur.device))

@@ -128,6 +128,7 @@ class Resampler:
             polyphase_design(self.up, self.down, taps_per_phase)
         )
         self._component = None
+        self._delegate = None  # set by pipe_tpu_torch.optimize.fuse
         self.context = None
 
     def processor(self):
@@ -172,10 +173,14 @@ class Resampler:
             )
             return self._component
 
+        alloc.fusion_tag = ("resample", self)
         return alloc
 
     def set_bank(self, hp):
         """Replace the polyphase bank mid-stream (same (L, K) shape)."""
+        if self._delegate is not None:  # fused away by optimize.fuse
+            return self._delegate.set_bank(hp)
+
         def fn():
             cur = self._component.get_param("hp")
             self._component.set_param("hp", param_tensor(hp, cur.device))

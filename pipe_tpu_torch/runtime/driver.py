@@ -72,10 +72,17 @@ def run(block_size: int, *lines: Line, stats=None, lookahead: int = 1,
     block boundary with flush hooks run. ``lookahead`` keeps that many
     dispatches in flight before resolving the oldest; ``batch_blocks=k``
     enqueues k blocks per dispatch (mutation granularity coarsens to k
-    unless targeted with ``at_block``). ``mesh`` and ``optimize`` keep the
-    JAX package's signature and raise ``NotImplementedError``.
+    unless targeted with ``at_block``). ``optimize=True`` runs the fusion
+    fixpoint (:func:`pipe_tpu_torch.optimize.fuse`) on every line before
+    building; retunes through the original op objects keep landing.
+    ``mesh`` keeps the JAX package's signature and raises
+    ``NotImplementedError``.
     """
-    refuse_unported(mesh=mesh, optimize=optimize)
+    refuse_unported(mesh=mesh)
+    if optimize:
+        from pipe_tpu_torch import optimize as _optimize
+
+        lines = tuple(_optimize.fuse(line) for line in lines)
     mctx = mutable.mutable()
     mle = MultiLineExecutor(context=mctx)
     for i, line in enumerate(lines):

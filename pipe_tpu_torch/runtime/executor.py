@@ -73,15 +73,12 @@ class _EOF:
 EOF = _EOF()
 
 
-def refuse_unported(mesh=None, optimize: bool = False) -> None:
-    """Raise ``NotImplementedError`` for the runtime knobs the port does not
-    have yet (a device mesh, the fusion optimizer)."""
-    for name, value, default in (("mesh", mesh, None),
-                                 ("optimize", optimize, False)):
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (only {default!r})"
-            )
+def refuse_unported(mesh=None) -> None:
+    """Raise ``NotImplementedError`` for the runtime knob the port does not
+    have yet: a device mesh."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh={mesh!r} is not ported yet (only None)")
 
 
 def _gate(eof: torch.Tensor, new_tree, old_tree):

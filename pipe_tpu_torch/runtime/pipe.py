@@ -20,9 +20,10 @@ then deliver an adoption mutation to the owning executor thread, which
 splices the component in between blocks (``pipe.go:259-365``,
 ``run.go:134-169``).
 
-Not ported yet: ``mesh`` (and with it the multi-host health rounds and the
-untargeted multi-host push agreement) and ``optimize``; both raise
-``NotImplementedError``.
+``optimize=True`` fuses every line at build
+(:func:`pipe_tpu_torch.optimize.fuse`). Not ported yet: ``mesh`` (and with
+it the multi-host health rounds and the untargeted multi-host push
+agreement), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -131,7 +132,12 @@ class Pipe:
                  optimize: bool = False, device=None):
         if not lines:
             raise ValueError("pipe without lines")
-        refuse_unported(mesh=mesh, optimize=optimize)
+        refuse_unported(mesh=mesh)
+        if optimize:
+            # run the fusion fixpoint on every line at build
+            from pipe_tpu_torch import optimize as _optimize
+
+            lines = tuple(_optimize.fuse(line) for line in lines)
         self.block_size = block_size
         self.device = device
         self.stats = stats

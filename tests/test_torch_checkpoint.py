@@ -115,6 +115,88 @@ def test_keys_and_leaf_order_match_jax():
     assert tl["r0/c2/state/1"].dtype == np.int32  # resampler: hist, off
 
 
+KIT_BLOCK = 512
+KIT_N = 9 * KIT_BLOCK + 300
+KIT_IR = (np.random.default_rng(8).standard_normal(1500)
+          * np.exp(-np.arange(1500) / 200.0))
+
+
+def _kit_pipe(pkg, x, start, stop, out):
+    """A Pipe of OLSConvolve -> Delay (ring, feedback) -> Compressor ->
+    SpectralGain, 2 channels, fed ``x[:, start:stop[0]]``."""
+    ops = pkg.ops
+    pos = [start]
+
+    def feed(n):
+        if pos[0] >= stop[0]:
+            return None
+        c = x[:, pos[0]: min(pos[0] + n, stop[0])]
+        pos[0] += c.shape[1]
+        return c
+
+    gains = np.linspace(1.0, 0.5, 129)
+    line = pkg.Line(
+        source=lambda m, b: pkg.Source(
+            output=pkg.SignalProperties(sample_rate=44100.0, channels=2),
+            feed=feed),
+        processors=[
+            ops.OLSConvolve(KIT_IR).processor(),
+            ops.Delay(700, feedback=0.4, wet=0.6, dry=0.8).processor(),
+            ops.Compressor(-12.0, 3.0, attack_ms=5.0, release_ms=60.0).processor(),
+            ops.SpectralGain(256, 64, gains).processor(),
+        ],
+        sink=lambda m, b, p: pkg.Sink(receive=lambda a: out.append(np.array(a))),
+    )
+    return pkg.Pipe(KIT_BLOCK, line)
+
+
+def _int_leaves(pipe, ckpt_mod):
+    return {k: v for k, v in ckpt_mod.snapshot(pipe).leaves.items()
+            if np.issubdtype(v.dtype, np.integer)}
+
+
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_op_kit_checkpoint_crosses_packages(tmp_path, direction):
+    """The new ops' state (OLS ``prev/fdl/pos``, the Delay ring and its
+    ``pos``, the envelope and its dd low word, spectral ``hist/nres/tail``)
+    saved mid-stream, after a partial block, by one package continues in
+    the other: >= 100 dB against the first package's unbroken run, and the
+    integer state at the end equal."""
+    pkgs = {"jax": (pipe_tpu, pipe_tpu.checkpoint),
+            "port": (pipe_tpu_torch, checkpoint)}
+    first, second = (pkgs[k] for k in direction.split("-to-"))
+    x = np.random.default_rng(51).standard_normal((2, KIT_N)).astype(np.float32)
+    cut = 4 * KIT_BLOCK + 200  # a partial block before the snapshot
+    out_a, stop = [], [cut]
+    pa = _kit_pipe(first[0], x, 0, stop, out_a)
+    pa.start()
+    pa.wait(120)
+    path = tmp_path / "kit.ckpt.npz"
+    first[1].snapshot(pa).save(str(path))
+    ints = _int_leaves(pa, first[1])
+    assert len(ints) == 3  # OLS pos, Delay pos, spectral nres
+    n_head = len(out_a)
+    stop[0] = KIT_N
+    pa.start()
+    pa.wait(120)
+    ref = np.concatenate(out_a[n_head:], 1)
+
+    out_b = []
+    pb = _kit_pipe(second[0], x, cut, [KIT_N], out_b)
+    ckpt = second[1].load(str(path))
+    second[1].restore(pb, ckpt)
+    assert _int_leaves(pb, second[1]) == ints
+    pb.start()
+    pb.wait(120)
+    got = np.concatenate(out_b, 1)
+    assert got.shape == ref.shape
+    assert snr_db(ref, got) >= 100
+    ends = _int_leaves(pa, first[1]), _int_leaves(pb, second[1])
+    assert ends[0].keys() == ends[1].keys()
+    for k in ends[0]:
+        np.testing.assert_array_equal(ends[0][k], ends[1][k])
+
+
 def _gain_pipe(channels=1, n_gains=1, block=BLOCK):
     line = pipe_tpu_torch.Line(
         source=pipe_tpu_torch.mock.Source(channels=channels, limit=4).source(),

@@ -16,7 +16,7 @@ import torch
 
 import pipe_tpu_torch
 from pipe_tpu_torch import checkpoint, config, kernels, mock, ops
-from pipe_tpu_torch.ops.biquad import _iir_apply
+from pipe_tpu_torch.ops.biquad import _iir_apply, biquad_block, biquad_init_state
 from pipe_tpu_torch.signal import SignalProperties, snr_db
 
 
@@ -68,7 +68,7 @@ def test_fp32_pinned_on_the_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 4096), (64, 10240)])
+@pytest.mark.parametrize("shape", [(8, 4096), (16, 8192), (64, 10240)])
 def test_iir_kernel_matches_plain(cuda, shape):
     """>= 110 dB against the plain version (the JAX suite's bar between
     its recurrence paths); the default path on a CUDA tensor launches the
@@ -80,6 +80,30 @@ def test_iir_kernel_matches_plain(cuda, shape):
     assert kernels.iir_tiles_launches == before + 1
     y_plain = _iir_apply(*args, force="tiles")
     assert snr_db(y_plain.cpu().numpy(), y_kernel.cpu().numpy()) > 110
+
+
+@pytest.mark.gpu
+def test_kernel_streams_near_dc_section(cuda):
+    """A 20 Hz q=0.5 section at 44.1 kHz over 16 blocks of (8, 2048)
+    through the kernel (2 launches a block): the kernel forms its impulse
+    responses in float64 as the plain version does, so the stream holds
+    the 60 dB that tests/test_torch_biquad.py asks of the CPU path."""
+    import scipy.signal
+
+    sos = ops.design_peaking_eq(44100, 20.0, 0.5, 6.0)[None]
+    sos = sos / sos[:, 3:4]
+    x = np.random.default_rng(5).standard_normal((8, 16 * 2048)).astype(np.float32)
+    ref = scipy.signal.sosfilt(sos, x.astype(np.float64), axis=1)
+    coefs = torch.tensor(sos, dtype=torch.float32, device=cuda)
+    state = biquad_init_state(8, 1, cuda)
+    before = kernels.iir_tiles_launches
+    ys = []
+    for t in range(16):
+        xb = torch.from_numpy(x[:, t * 2048:(t + 1) * 2048]).to(cuda)
+        state, y = biquad_block(state, xb, 2048, coefs)
+        ys.append(y.cpu().numpy())
+    assert kernels.iir_tiles_launches == before + 32
+    assert snr_db(ref, np.concatenate(ys, 1)) >= 60
 
 
 @pytest.mark.gpu
@@ -117,6 +141,76 @@ def test_slice_line_on_card_matches_cpu(cuda):
         outs[device.type] = np.concatenate(got, 1)
     assert outs["cuda"].shape == outs["cpu"].shape
     assert snr_db(outs["cpu"], outs["cuda"]) > 100
+
+
+@pytest.mark.gpu
+def test_ols_block_on_card_matches_cpu(cuda):
+    """BASELINE config 4's OLS step at its shape, (16, 8192) with a
+    65,536-tap IR (8 partitions): four chained blocks on the card agree
+    with the CPU at >= 110 dB (both float32; cuFFT and the CPU FFT differ
+    in rounding order), and the ring head is a host int."""
+    from pipe_tpu_torch.ops.ols import ols_block, ols_init_state, partition_ir
+
+    C, B = 16, 8192
+    rng = np.random.default_rng(1)
+    ir = rng.standard_normal(65536) * np.exp(-np.arange(65536) / 8000)
+    spec = torch.from_numpy(partition_ir(ir, B))
+    xs = [torch.tensor(rng.standard_normal((C, B)), dtype=torch.float32)
+          for _ in range(4)]
+    ys = {}
+    for dev in (cuda, torch.device("cpu")):
+        st, out = ols_init_state(C, B, spec.shape[1], dev), []
+        for x in xs:
+            st, y = ols_block(st, x.to(dev), B, spec.to(dev))
+            out.append(y.cpu().numpy())
+        assert isinstance(st["pos"], int) and st["pos"] == 4
+        ys[dev.type] = np.concatenate(out, 1)
+    assert snr_db(ys["cpu"], ys["cuda"]) > 110
+
+
+@pytest.mark.gpu
+def test_biquad_cascade_launches_twice_per_section(cuda):
+    """A fused run of biquads (optimize.fuse -> BiquadCascade) launches the
+    kernel 2 x sections per block (forward and refinement pass) and agrees
+    with the CPU at >= 100 dB."""
+    from pipe_tpu_torch import optimize
+
+    C, B, n_blocks = 16, 8192, 3
+    rows = [ops.design_peaking_eq(44100, 1000, 1.0, 3.0),
+            np.stack([ops.design_highshelf(44100, 8000, -2.0),
+                      ops.design_lowshelf(44100, 200, 2.0)])]
+    x = np.random.default_rng(4).standard_normal((C, n_blocks * B)).astype(np.float32)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        eqs = [ops.Biquad(r) for r in rows]
+        line = optimize.fuse(pipe_tpu_torch.Line(
+            source=None, sink=None, processors=[e.processor() for e in eqs]))
+        assert len(line.processors) == 1
+        got = []
+        before = kernels.iir_tiles_launches
+        stream_line = pipe_tpu_torch.Line(
+            source=lambda m, b: pipe_tpu_torch.Source(
+                output=SignalProperties(44100.0, C),
+                feed=_array_feed(x)),
+            processors=line.processors,
+            sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=got.append))
+        pipe_tpu_torch.run(B, stream_line, device=dev)
+        launched = kernels.iir_tiles_launches - before
+        assert launched == (2 * 3 * n_blocks if dev.type == "cuda" else 0)
+        outs[dev.type] = np.concatenate(got, 1)
+    assert snr_db(outs["cpu"], outs["cuda"]) > 100
+
+
+def _array_feed(x):
+    pos = [0]
+
+    def feed(n):
+        if pos[0] >= x.shape[1]:
+            return None
+        pos[0] += n
+        return x[:, pos[0] - n: pos[0]]
+
+    return feed
 
 
 # -- the kernel module under threads ------------------------------------------

@@ -48,6 +48,87 @@ def stream(pkg, proc_allocs, x, block, sr=44100.0):
     return np.concatenate(out, axis=1)
 
 
+def stream_chunks(pkg, proc_allocs, x, block, chunks, sr=44100.0):
+    """Like :func:`stream`, but the feed returns the given chunk lengths in
+    order (a short chunk mid-stream is a partial block)."""
+    C, N = x.shape
+    assert sum(chunks) == N
+    state = {"pos": 0, "i": 0}
+    out = []
+
+    def feed(block_size):
+        if state["i"] >= len(chunks):
+            return None
+        n = chunks[state["i"]]
+        assert n <= block_size
+        state["i"] += 1
+        state["pos"] += n
+        return x[:, state["pos"] - n: state["pos"]]
+
+    pkg.run(block, pkg.Line(
+        source=lambda m, b: pkg.Source(
+            output=pkg.SignalProperties(sample_rate=sr, channels=C), feed=feed),
+        processors=list(proc_allocs),
+        sink=lambda m, b, p: pkg.Sink(receive=lambda a: out.append(np.array(a)))))
+    return np.concatenate(out, axis=1)
+
+
+def step_twins(jop, top, C, B, chunks, switch, sr=44100.0, seed=0):
+    """One op of each package stepped directly over the same seeded blocks
+    (``chunks`` valid frames each, garbage past them): JAX (jitted, as its
+    executor runs it) over all of them, the port from JAX's state before
+    block ``switch``, carried with ``convert``. Returns the JAX outputs of
+    the blocks from ``switch`` on, the port's, and both final states as
+    numpy trees."""
+    import jax
+
+    from pipe_tpu import mutable as jmutable
+    from pipe_tpu.signal import Signal as JSignal, SignalProperties as JProps
+    from pipe_tpu_torch import convert, mutable
+    from pipe_tpu_torch.signal import Signal, SignalProperties
+
+    rng = np.random.default_rng(seed)
+    blocks = [rng.standard_normal((C, B)).astype(np.float32) for _ in chunks]
+    jcomp = jop.processor()(jmutable.mutable(), B, JProps(sr, C))
+    tcomp = top.processor()(mutable.mutable(), B, SignalProperties(sr, C))
+    jstep = jax.jit(jcomp.step)
+    jstate, jout, mid = jcomp.state, [], None
+    for i, (x, f) in enumerate(zip(blocks, chunks)):
+        if i == switch:
+            mid = jax.tree.map(np.asarray, jstate)
+        jstate, sig = jstep(jstate, jcomp.params,
+                            JSignal(jnp.asarray(x), jnp.int32(f)))
+        jout.append(np.asarray(sig.data)[:, : int(sig.frames)])
+    tstate, tout = convert.tree_from_numpy(mid), []
+    for x, f in zip(blocks[switch:], chunks[switch:]):
+        tstate, sig = tcomp.step(tstate, tcomp.params,
+                                 Signal(torch.from_numpy(x), f))
+        tout.append(sig.data.numpy()[:, : sig.frames])
+    return (jout[switch:], tout, jax.tree.map(np.asarray, jstate),
+            convert.tree_to_numpy(tstate))
+
+
+def assert_twins_agree(jout, tout, jstate, tstate, db=100.0, state_db=None):
+    """Equal frame counts, outputs >= ``db`` apart, and the final states
+    key for key: integer leaves equal, float leaves >= ``state_db``
+    (default ``db``) apart."""
+    from pipe_tpu_torch.tree import tree_flatten
+
+    assert [a.shape for a in tout] == [a.shape for a in jout]
+    assert snr_db(np.concatenate(jout, 1), np.concatenate(tout, 1)) >= db
+    jl, jdef = tree_flatten(jstate)
+    tl, tdef = tree_flatten(tstate)
+    assert jdef == tdef
+    for a, b in zip(jl, tl):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if np.issubdtype(a.dtype, np.integer):
+            np.testing.assert_array_equal(a, b)
+        elif np.any(a):
+            assert snr_db(a, b) >= (db if state_db is None else state_db)
+        else:
+            assert not np.any(b)
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32))
 

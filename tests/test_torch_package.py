@@ -47,6 +47,17 @@ def test_no_jax_import(path):
     assert not roots & {"jax", "jaxlib", "pipe_tpu"}, roots
 
 
+def test_op_kit_exports_every_jax_name():
+    """Every name of ``pipe_tpu.ops.__all__`` exists in the port's op kit,
+    and the port exports the optimizer."""
+    import pipe_tpu.ops
+
+    assert set(pipe_tpu.ops.__all__) <= set(tops.__all__)
+    for name in pipe_tpu.ops.__all__:
+        assert hasattr(tops, name), name
+    assert callable(pipe_tpu_torch.optimize.fuse)
+
+
 def test_fp32_pinned_for_cublas_and_cudnn():
     assert config.matmul_precision() == "highest"
     assert config.fp32_pinned()

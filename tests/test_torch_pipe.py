@@ -67,10 +67,41 @@ def test_no_lines_raises():
 @pytest.mark.parametrize("knob", [{"mesh": object()}, {"optimize": True}],
                          ids=["mesh", "optimize"])
 def test_unported_knobs_raise(knob):
-    line = pipe_tpu_torch.Line(source=mock.Source(limit=4).source(),
-                               sink=mock.Sink().sink())
-    with pytest.raises(NotImplementedError):
-        pipe_tpu_torch.Pipe(BLOCK, line, **knob)
+    """``mesh`` is not ported and raises; ``optimize=True`` is: the Pipe
+    fuses its line at build (two biquads into one cascade, a gain into
+    the mix) and streams what the unfused line streams."""
+    from pipe_tpu_torch import ops
+    from pipe_tpu_torch.ops.fused import BiquadCascade, MixWithGain
+
+    if "mesh" in knob:
+        line = pipe_tpu_torch.Line(source=mock.Source(limit=4).source(),
+                                   sink=mock.Sink().sink())
+        with pytest.raises(NotImplementedError):
+            pipe_tpu_torch.Pipe(BLOCK, line, **knob)
+        return
+    rows = [ops.design_peaking_eq(44100, 1000, 1.0, 3.0),
+            ops.design_highshelf(44100, 8000, -2.0)]
+
+    def run(optimize):
+        eqs = [ops.Biquad(r) for r in rows]
+        g, mx = ops.Gain(0.5), ops.ChannelMix(np.ones((1, 2)) / 2)
+        sink = mock.Sink()
+        p = pipe_tpu_torch.Pipe(BLOCK, pipe_tpu_torch.Line(
+            source=mock.Source(value=1.0, channels=2, limit=8 * BLOCK).source(),
+            processors=[e.processor() for e in eqs] + [g.processor(),
+                                                       mx.processor()],
+            sink=sink.sink()), optimize=optimize)
+        p.start()
+        p.wait(60)
+        return p, eqs, g, sink.values
+
+    p, eqs, g, fused = run(True)
+    assert len(p.routes[0].processors) == 2
+    assert all(isinstance(e._delegate, BiquadCascade) for e in eqs)
+    assert isinstance(g._delegate, MixWithGain)
+    _, _, _, plain = run(False)
+    assert fused.shape == plain.shape == (1, 8 * BLOCK)
+    assert snr_db(plain, fused) > 110
 
 
 def test_reset_restart(pipe_timeout):

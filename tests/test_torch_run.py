@@ -9,6 +9,7 @@ import threading
 
 import numpy as np
 import pytest
+import scipy.signal
 import torch
 
 import pipe_tpu
@@ -18,6 +19,7 @@ from pipe_tpu_torch import kernels, mutable, ops as tops
 from pipe_tpu_torch.errors import ErrorRun, StartError
 from pipe_tpu_torch.graph import Line, make_route
 from pipe_tpu_torch.ops import biquad as tbq
+from pipe_tpu_torch.ops.fused import FIRWithGain
 from pipe_tpu_torch.runtime import (
     LineExecutor,
     MultiLineExecutor,
@@ -146,10 +148,34 @@ def test_start_error_rolls_back_started_components():
     ids=["mesh", "optimize"],
 )
 def test_unported_knobs_raise(knob):
+    """``mesh`` is not ported: it raises before anything starts.
+    ``optimize=True`` is: ``run`` fuses the line (the gain after the FIR
+    folds into its taps) and streams what the unfused line streams."""
     hooks = [Hooks(), Hooks(), Hooks()]
-    with pytest.raises(NotImplementedError):
-        pipe_tpu_torch.run(512, counting_line(1040, hooks), **knob)
-    assert not any(h.started for h in hooks)
+    if "mesh" in knob:
+        with pytest.raises(NotImplementedError):
+            pipe_tpu_torch.run(512, counting_line(1040, hooks), **knob)
+        assert not any(h.started for h in hooks)
+        return
+    x = np.random.default_rng(5).standard_normal((2, 1040)).astype(np.float32)
+    h = tops.design_lowpass(31, 4000.0, 44100.0)
+    fir, gain, out = tops.FIR(h), tops.Gain(0.5), []
+    pos = [0]
+
+    def feed(n):
+        if pos[0] >= x.shape[1]:
+            return None
+        pos[0] += n
+        return x[:, pos[0] - n: pos[0]]
+
+    pipe_tpu_torch.run(512, pipe_tpu_torch.Line(
+        source=lambda m, b: pipe_tpu_torch.Source(
+            output=SignalProperties(sample_rate=44100.0, channels=2), feed=feed),
+        processors=[fir.processor(), gain.processor()],
+        sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=out.append)), **knob)
+    assert isinstance(fir._delegate, FIRWithGain) and gain._delegate is fir._delegate
+    oracle = 0.5 * scipy.signal.lfilter(h, [1.0], x.astype(np.float64), axis=1)
+    assert snr_db(oracle, np.concatenate(out, axis=1)) > 110
 
 
 def test_device_source_eof_commits_no_state():
