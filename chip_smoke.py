@@ -11,20 +11,34 @@ the card (``cuda:0``), in phases, each printing one line:
 3. IEEE FP32 is pinned for cuBLAS and cuDNN, and a float32 convolution on
    the card agrees with float64;
 4. the CUDA kernels build (seconds printed);
-5. the biquad tile kernel against its plain PyTorch version at
-   (8, 4096), (16, 8192) (config 4's and the optimizer's blocks) and
-   (64, 10240), both EQ sections: >= 110 dB against the
-   plain version, >= 90 dB against a float64 recurrence; both timed with
-   CUDA events;
+5. both entry points of the biquad kernels against their plain PyTorch
+   versions at (8, 4096), (16, 8192) (config 4's and the optimizer's
+   blocks) and (64, 10240), both EQ sections: ``iir_tiles`` (the
+   recurrence) >= 110 dB against the plain version and >= 90 dB against a
+   float64 recurrence; ``biquad_section`` (a whole section in one call)
+   >= 110 dB against the eager section and >= 90 dB against float64, with
+   and without the refinement pass, for blocks valid to B, 6824 (config
+   4's last block; B - 1 where B is smaller), 1 and 0 frames, the new
+   ``x_tail`` exactly, the new ``s`` exactly the kernel's own last two
+   valid outputs and >= 110 dB from the plain version's (the output's own
+   bar: the state is two samples a channel of it, so its SNR scatters
+   more than the whole block's); both timed with CUDA events, back to
+   back and as a replayed CUDA graph (device time alone), beside their
+   bound. Then the recurrence streamed: 43 blocks of (64, 10240) through
+   ``_iir_apply`` with the state carried, >= 90 dB against a float64
+   ``lfilter``, one ``iir_tiles`` launch a block;
 6. ``make_flagship(64, 147*64)``, fused and unfused, four chained chunks:
    >= 100 dB against the same chunks run by the port on the CPU, and
    >= 100 dB between fused and unfused;
-7. the slice: ``run(9408, Line(host feed of 64 channels x 10 s at 44.1 kHz
-   -> FIR(255) -> Resampler(48000, 44100) -> Biquad EQ -> 64->2 mix ->
-   host receive))`` on the card: exactly (2, 480000) frames out, >= 100 dB
+7. the slice: ``run(9408, Line(host feed of 64 channels x 10 s at 44.1
+   kHz -> FIR(255) -> Resampler(48000, 44100) -> Biquad EQ -> 64->2 mix
+   -> host receive))`` on the card: exactly (2, 480000) frames out, >= 100 dB
    against the same line run on the CPU and >= 100 dB against a float64
-   scipy oracle of the chain, the kernel launched 4 times per block,
-   samples/s printed;
+   scipy oracle of the chain, ``biquad_section`` launched 2 times per
+   block (once a section), samples/s printed, and a profile of 10 blocks
+   (device time by kernel group, launches per block, the device's idle
+   share). The run is given no ``device``: the port's default, the card,
+   is what is driven;
 8. the slice through the async ``Pipe`` on the card (``lookahead=4``), with
    live surgery while it streams: an EQ retune pushed for block 12, a
    low-shelf ``Biquad`` inserted before the mix at block 24, and a second
@@ -32,11 +46,11 @@ the card (``cuda:0``), in phases, each printing one line:
    own executor thread. Checks: line A's output is exactly (2, 480000),
    >= 100 dB against the same scenario run by the port on the CPU, >= 120
    dB against the card at ``lookahead=1``; the first sample that differs
-   from a run without the retune is 12 * 10240; the kernel launches per
-   executor thread are exact (line A 4 per block, 6 after the insert; line
-   B 4 per block); both surgery handles complete without error. Samples/s
-   of the plain slice through ``Pipe`` at lookahead 1 and 4 and at
-   ``batch_blocks=4``;
+   from a run without the retune is 12 * 10240; the ``biquad_section``
+   launches per executor thread are exact (line A 2 per block, 3 after the
+   insert; line B 2 per block); both surgery handles complete without
+   error. Samples/s of the plain slice through ``Pipe`` at lookahead 1 and
+   4 and at ``batch_blocks=4``;
 9. dispatch cost of the streaming runtime on the card (BASELINE configs 1
    and 2): a mono 512-frame mock source -> gain -> mock sink, microseconds
    per block at ``batch_blocks`` 1 and 32; a stereo gain + mix under 50
@@ -45,11 +59,13 @@ the card (``cuda:0``), in phases, each printing one line:
     channels x 10 s at 44.1 kHz -> OLSConvolve(65,536-tap IR) -> peaking
     EQ -> host receive))`` on the card: exactly (16, 441000) frames out,
     >= 90 dB against a float64 scipy oracle (fftconvolve, sosfilt) and
-    against the same line run by the port on the CPU, the kernel launched
-    2 times per block; samples/s, the device time of one ``ols_block`` at
-    (16, 8192) and of the kernel there (CUDA events; the kernel >= 110 dB
-    against its plain version on the same peaking section), and a profile of the
-    run's device time (FFT, kernel, other) and launches per block;
+    against the same line run by the port on the CPU, ``biquad_section``
+    launched once per block; samples/s, the device time of one
+    ``ols_block`` at (16, 8192) and of both kernel entry points there
+    (CUDA events; each >= 110 dB against its plain version on the same
+    peaking section), and a profile of the run's device time (FFT, biquad
+    kernels, other), launches per block and the device's idle share, in
+    which neither the eager section nor a float64 kernel may appear;
 11. the optimizer at full width: the same feed through ``Gain(0.5) -> OLS
     -> peaking -> high shelf`` in ``Pipe(8192, lookahead=4)`` with
     ``optimize=True`` and ``False``: the fused line is ``OLSWithGain ->
@@ -57,8 +73,8 @@ the card (``cuda:0``), in phases, each printing one line:
     apart) without retunes and with an EQ retune; the EQ retune through the
     original ``Biquad`` at block 20 first changes output sample 20 * 8192,
     a ``set_gain(0.25)`` through the original ``Gain`` at block 30 first
-    changes sample 30 * 8192, in both pipes; 4 kernel launches per block
-    on the executor thread of every run;
+    changes sample 30 * 8192, in both pipes; 2 ``biquad_section`` launches
+    per block on the executor thread of every run;
 12. the rest of the op kit, each op on the card against the port on the
     CPU at >= 100 dB (dB and times printed): ``Delay`` (ring and in-block
     scan regimes, with feedback), ``Compressor`` (50 ms attack),
@@ -67,8 +83,9 @@ the card (``cuda:0``), in phases, each printing one line:
     ``Biquad(precision='extended')`` on a 20 Hz kappa-floor section (also
     against float64, and timed against the default path).
 
-Then one JSON line with each kernel's launches on each path, error and
-times, and last ``{"ok": true, "device": {...}}``. Any failure raises (an
+Then one JSON line with each kernel entry point's launches on each path,
+error, times and bound, and last ``{"ok": true, "device": {...}}``. Any
+failure raises (an
 executor thread's failure reaches ``Pipe.wait``), so the exit code is
 non-zero and no result line is printed.
 """
@@ -76,6 +93,7 @@ non-zero and no result line is printed.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -95,6 +113,9 @@ C4, B4 = 16, 8192  # BASELINE config 4: 16 channels, 8192-frame blocks
 KERNEL_SHAPES = ((8, 4096), (C4, B4), (CHANNELS, 10240))
 N4 = SR_IN * SECONDS
 EQ_AT, GAIN_AT = 20, 30  # phase 11's retune blocks
+# the card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def say(phase, msg: str) -> None:
@@ -134,6 +155,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
+    """Device time of one ``fn()`` in ms with no host in the way: ``calls``
+    calls captured into a CUDA graph on a side stream, replayed."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, iters=replays) / calls
+
+
+def bound_ms(n_bytes: int, flops: int) -> tuple:
+    """The least time the card could take, in ms, and what sets it: the
+    bytes over the memory rate or the operations over the FP32 rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def eq_sos(peak_db: float = 3.0):
     """The slice's EQ: a peaking section at 1 kHz and a high shelf at 8 kHz."""
     from pipe_tpu_torch import ops
@@ -155,8 +203,10 @@ def recurrence_f64(v, s, a1, a2):
 
 
 def check_kernel(dev, shape, seed: int) -> dict:
-    """The kernel against its plain version and float64, for both EQ
-    sections' poles; times both at section 0."""
+    """``iir_tiles`` against its plain version and float64, for both EQ
+    sections' poles; times both at section 0. Its bound: v read and y
+    written once (plus the state and two coefficients), 4 operations a
+    sample."""
     import torch
 
     from pipe_tpu_torch import kernels
@@ -188,10 +238,133 @@ def check_kernel(dev, shape, seed: int) -> dict:
         require(res["snr_f64_db"][-1] >= 90, f"kernel vs float64 >= 90 dB {res}")
     a1 = torch.tensor(sos[0, 4], device=dev)
     a2 = torch.tensor(sos[0, 5], device=dev)
-    res["ms"] = cuda_ms(lambda: kernels.iir_tiles(v, s, a1, a2), iters=50)
+    res["ms"] = cuda_ms(lambda: kernels.iir_tiles(v, s, a1, a2), iters=200)
+    res["device_ms"] = graph_ms(lambda: kernels.iir_tiles(v, s, a1, a2))
     res["plain_ms"] = cuda_ms(
         lambda: _iir_apply(v, s, a1, a2, force="tiles"), iters=5)
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        4 * (2 * C * B + 2 * C + 2), 4 * C * B)
     return res
+
+
+def section_f64(x, frames, x_tail, s, row):
+    """One section in float64 from the float32 coefficients ``row``: the
+    output over the whole block (the input zeroed from ``frames`` on)."""
+    b0, b1, b2, _, a1, a2 = (float(c) for c in row)
+    buf = np.concatenate([x_tail, x], axis=1).astype(np.float64)
+    buf[:, 2 + frames:] = 0.0
+    v = b0 * buf[:, 2:] + b1 * buf[:, 1:-1] + b2 * buf[:, :-2]
+    return recurrence_f64(v, s, a1, a2)
+
+
+def check_section(dev, shape, seed: int) -> dict:
+    """``biquad_section`` against the eager section (its plain version) and
+    float64, for both EQ sections, with and without the refinement pass,
+    at four valid lengths; times both at section 0 with the refinement.
+    Its bound: x read and y written once (plus the states and the
+    coefficient row); operations a sample: 5 for the FIR part, 4 for the
+    recurrence, and with the refinement 5 for the defect, 4 for its
+    recurrence and 1 to add it."""
+    import torch
+
+    from pipe_tpu_torch import kernels
+    from pipe_tpu_torch.ops.biquad import _biquad_section_ref
+    from pipe_tpu_torch.signal import snr_db
+
+    rng = np.random.default_rng(seed)
+    C, B = shape
+
+    def on_card(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    x = on_card(rng.standard_normal((C, B)))
+    x_tail, s = (on_card(rng.standard_normal((C, 2))) for _ in range(2))
+    state = {"x_tail": x_tail, "s": s}
+    host = [t.cpu().numpy() for t in (x, x_tail, s)]
+    res = {"shape": list(shape), "snr_plain_db": [], "snr_f64_db": [],
+           "snr_state_db": [], "max_abs_err": 0.0}
+    for row in eq_sos().astype(np.float32):
+        coefs = on_card(row)
+        for refine in (True, False):
+            for frames in (B, 6824 if B > 6824 else B - 1, 1, 0):
+                y, new_x_tail, new_s = kernels.biquad_section(
+                    x, frames, x_tail, s, coefs, refine)
+                ref_state, y_p = _biquad_section_ref(state, x, frames, coefs,
+                                                     refine)
+                torch.cuda.synchronize()
+                what = f"biquad_section {shape} refine={refine} frames={frames}"
+                yk, yp = y.cpu().numpy(), y_p.cpu().numpy()
+                require(np.isfinite(yk).all(), f"{what}: output finite")
+                plain_db = float(snr_db(yp, yk))
+                require(plain_db >= 110, f"{what}: vs plain {plain_db:.1f} dB")
+                require(torch.equal(new_x_tail, ref_state["x_tail"]),
+                        f"{what}: new x_tail differs from the plain version's")
+                # the new s is the kernel's own output at the last two
+                # valid frames (the carried state before them), exactly
+                y_hist = torch.cat([s.flip(1), y], dim=1)
+                require(torch.equal(new_s, y_hist[:, frames: frames + 2].flip(1)),
+                        f"{what}: new s is not the last two valid outputs")
+                same = torch.equal(new_s, ref_state["s"])
+                state_db = float("inf") if same else float(snr_db(
+                    ref_state["s"].cpu().numpy(), new_s.cpu().numpy()))
+                require(state_db >= 110, f"{what}: new s {state_db:.1f} dB")
+                res["snr_plain_db"].append(round(plain_db, 1))
+                res["snr_state_db"].append(round(min(state_db, 999.0), 1))
+                res["max_abs_err"] = max(res["max_abs_err"],
+                                         float(np.max(np.abs(yk - yp))))
+                if refine and frames == B:
+                    f64_db = float(snr_db(section_f64(
+                        host[0], frames, host[1], host[2], row), yk))
+                    require(f64_db >= 90, f"{what}: vs float64 {f64_db:.1f} dB")
+                    res["snr_f64_db"].append(round(f64_db, 1))
+    coefs = on_card(eq_sos().astype(np.float32)[0])
+    res["ms"] = cuda_ms(
+        lambda: kernels.biquad_section(x, B, x_tail, s, coefs), iters=200)
+    res["device_ms"] = graph_ms(
+        lambda: kernels.biquad_section(x, B, x_tail, s, coefs))
+    res["plain_ms"] = cuda_ms(
+        lambda: _biquad_section_ref(state, x, B, coefs), iters=5)
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        4 * (2 * C * B + 8 * C + 6), 19 * C * B)
+    return res
+
+
+def check_streamed_recurrence(dev, x) -> dict:
+    """The recurrence as a stream: ``x`` in blocks of 10240 frames through
+    ``_iir_apply`` on the card (one ``iir_tiles`` launch a block), each
+    block starting from the last two outputs of the one before, against
+    ``scipy.signal.lfilter`` in float64."""
+    import scipy.signal
+    import torch
+
+    from pipe_tpu_torch import kernels
+    from pipe_tpu_torch.ops.biquad import _iir_apply
+    from pipe_tpu_torch.signal import snr_db
+
+    B = 10240
+    row = eq_sos().astype(np.float32)[0]
+    a1, a2 = (torch.tensor(c, device=dev) for c in row[4:6])
+    s = torch.zeros((x.shape[0], 2), dtype=torch.float32, device=dev)
+    blocks = x.shape[1] // B
+    kernels.reset_counts()
+    out = []
+    for t in range(blocks):
+        y = _iir_apply(torch.from_numpy(x[:, t * B:(t + 1) * B]).to(dev), s,
+                       a1, a2)
+        s = y[:, -2:].flip(1).contiguous()
+        out.append(y)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["iir_tiles"]
+    require(launches == blocks,
+            f"iir_tiles launched {launches} times for {blocks} blocks")
+    y = torch.cat(out, dim=1).cpu().numpy()
+    ref = scipy.signal.lfilter(
+        [1.0], [1.0, float(row[4]), float(row[5])],
+        x[:, : blocks * B].astype(np.float64), axis=1)
+    db = float(snr_db(ref, y))
+    require(np.isfinite(y).all() and db >= 90,
+            f"streamed recurrence vs float64 {db:.1f} dB")
+    return {"blocks": blocks, "launches": launches, "f64_db": db}
 
 
 def check_flagship(dev, n_chunks: int = 4) -> dict:
@@ -268,7 +441,9 @@ def slice_line(port, x, out: list, fed: list, gate=None):
     ), eq
 
 
-def run_slice(port, x, device):
+def run_slice(port, x, device=None):
+    """The slice through ``run``; with no ``device``, on the port's default
+    (the card)."""
     out, fed = [], []
     port.run(BLOCK, slice_line(port, x, out, fed)[0], device=device)
     return np.concatenate(out, axis=1), len(fed)
@@ -379,10 +554,13 @@ def check_pipe_slice(port, dev, x) -> dict:
     y4, b4 = surgery_scenario(port, x, dev, lookahead=4)
     wall = time.perf_counter() - t0
     by_thread = kernels.launch_counts(by_thread=True)
-    launches = {t: c["iir_tiles"] for t, c in by_thread.items()}
-    want_a = 4 * blocks + 2 * (blocks - INSERT_AT)
-    want = {"pipe-exec-line0": want_a, "pipe-exec-line1": 4 * B_BLOCKS}
-    require(launches == want, f"iir_tiles launches per thread {launches} != {want}")
+    launches = {t: c.get("biquad_section", 0) for t, c in by_thread.items()}
+    want_a = 2 * blocks + (blocks - INSERT_AT)
+    want = {"pipe-exec-line0": want_a, "pipe-exec-line1": 2 * B_BLOCKS}
+    require(launches == want,
+            f"biquad_section launches per thread {launches} != {want}")
+    require(kernels.launch_counts()["iir_tiles"] == 0,
+            "the Pipe launched the recurrence kernel outside a section")
     require(y4.shape == (2, n_out), f"line A output {y4.shape} != (2, {n_out})")
     require(b4.shape == (CHANNELS, B_BLOCKS * 10240), f"line B output {b4.shape}")
     require(np.isfinite(y4).all() and np.isfinite(b4).all(), "outputs finite")
@@ -493,8 +671,10 @@ def peaking_sos():
 
 
 def device_profile(fn, n_blocks: int) -> dict:
-    """Device time of ``fn()`` by kernel group (ms) and eager launches per
-    block, from ``torch.profiler``'s ``key_averages``."""
+    """Device time of ``fn()`` by kernel group (ms), the mean time of each
+    biquad kernel (us), kernel launches per block and the names of the
+    kernels that work in float64, from ``torch.profiler``'s
+    ``key_averages``."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -502,8 +682,8 @@ def device_profile(fn, n_blocks: int) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"iir_tiles": 0.0, "fft": 0.0, "memcpy": 0.0, "other": 0.0}
-    launches = 0
+    groups = {"biquad kernels": 0.0, "fft": 0.0, "memcpy": 0.0, "other": 0.0}
+    launches, float64_kernels, biquad_us = 0, [], {}
     for evt in prof.key_averages():
         if evt.key == "cudaLaunchKernel":
             launches += evt.count
@@ -511,8 +691,12 @@ def device_profile(fn, n_blocks: int) -> dict:
         if t <= 0:
             continue
         name = evt.key.lower()
-        if "iir_tiles" in name:
-            groups["iir_tiles"] += t
+        if "double" in name:
+            float64_kernels.append(evt.key)
+        if "biquad_" in name:
+            groups["biquad kernels"] += t
+            short = re.search(r"biquad_\w+(<[^>]*>)?", evt.key).group(0)
+            biquad_us[short] = round(1e3 * t / evt.count, 2)
         elif "fft" in name:
             groups["fft"] += t
         elif "memcpy" in name:
@@ -523,7 +707,8 @@ def device_profile(fn, n_blocks: int) -> dict:
     require(total > 0, "the profiler recorded device time")
     return {"device_ms": total, "ms": groups,
             "share": {k: v / total for k, v in groups.items()},
-            "launches_per_block": launches / n_blocks}
+            "launches_per_block": launches / n_blocks,
+            "biquad_us": biquad_us, "float64_kernels": float64_kernels}
 
 
 def check_config4(port, dev, x) -> dict:
@@ -532,7 +717,8 @@ def check_config4(port, dev, x) -> dict:
     import torch
 
     from pipe_tpu_torch import kernels, ops
-    from pipe_tpu_torch.ops.biquad import _iir_apply
+    from pipe_tpu_torch.ops import biquad as biquad_ops
+    from pipe_tpu_torch.ops.biquad import _biquad_section_ref, _iir_apply
     from pipe_tpu_torch.ops.ols import ols_block, ols_init_state, partition_ir
     from pipe_tpu_torch.signal import snr_db
 
@@ -553,12 +739,14 @@ def check_config4(port, dev, x) -> dict:
     y = run_c4(x, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()["iir_tiles"]
+    launches = kernels.launch_counts()["biquad_section"]
     require(y.shape == x.shape, f"config 4 output {y.shape} != {x.shape}")
     require(np.isfinite(y).all(), "config 4 output finite")
-    want = 2 * blocks if dev.type == "cuda" else 0
+    want = blocks if dev.type == "cuda" else 0
     require(launches == want,
-            f"iir_tiles launched {launches} times for {blocks} blocks")
+            f"biquad_section launched {launches} times for {blocks} blocks")
+    require(kernels.launch_counts()["iir_tiles"] == 0,
+            "config 4 launched the recurrence kernel outside a section")
     t_cpu = time.perf_counter()
     y_cpu = run_c4(x, torch.device("cpu"))
     t_cpu = time.perf_counter() - t_cpu
@@ -582,14 +770,42 @@ def check_config4(port, dev, x) -> dict:
     kernel_db = snr_db(_iir_apply(xb, s, a1, a2, force="tiles").cpu().numpy(),
                        kernels.iir_tiles(xb, s, a1, a2).cpu().numpy())
     require(kernel_db >= 110, f"iir_tiles ({C4}, {B4}) vs plain {kernel_db:.1f} dB")
-    kernel_ms = cuda_ms(lambda: kernels.iir_tiles(xb, s, a1, a2), iters=50)
+    kernel_ms = cuda_ms(lambda: kernels.iir_tiles(xb, s, a1, a2), iters=200)
     plain_ms = cuda_ms(lambda: _iir_apply(xb, s, a1, a2, force="tiles"), iters=5)
-    prof = device_profile(lambda: run_c4(x[:, : 10 * B4], dev), 10)
+    coefs = torch.tensor(np.float32(peaking_sos()), device=dev)
+    st = {"x_tail": s.flip(1).contiguous(), "s": s}
+    section_db = snr_db(
+        _biquad_section_ref(st, xb, 6824, coefs)[1].cpu().numpy(),
+        kernels.biquad_section(xb, 6824, st["x_tail"], s, coefs)[0].cpu().numpy())
+    require(section_db >= 110,
+            f"biquad_section ({C4}, {B4}) vs plain {section_db:.1f} dB")
+    section_ms = cuda_ms(
+        lambda: kernels.biquad_section(xb, B4, st["x_tail"], s, coefs), iters=200)
+    section_plain_ms = cuda_ms(
+        lambda: _biquad_section_ref(st, xb, B4, coefs), iters=5)
+
+    # the profiled run must stay inside the kernels: no eager section, no
+    # eager recurrence, no float64 kernel (the eager refinement's defect)
+    eager = []
+    spied = {n: getattr(biquad_ops, n) for n in ("_biquad_section_ref", "_iir_apply")}
+    for n, fn in spied.items():
+        setattr(biquad_ops, n,
+                lambda *a, _n=n, _fn=fn, **k: eager.append(_n) or _fn(*a, **k))
+    try:
+        prof = device_profile(lambda: run_c4(x[:, : 10 * B4], dev), 10)
+    finally:
+        for n, fn in spied.items():
+            setattr(biquad_ops, n, fn)
+    if dev.type == "cuda":
+        require(not eager, f"eager biquad functions ran on the card: {eager[:4]}")
+        require(not prof["float64_kernels"],
+                f"float64 kernels in config 4's profile: {prof['float64_kernels']}")
     return {"blocks": blocks, "launches": launches, "wall": wall,
             "rate": x.size / wall, "cpu_db": cpu_db, "f64_db": f64_db,
             "cpu_wall": t_cpu, "ols_ms": ols_ms, "kernel_ms": kernel_ms,
-            "kernel_db": kernel_db,
-            "plain_ms": plain_ms, "profile": prof}
+            "kernel_db": kernel_db, "plain_ms": plain_ms,
+            "section_ms": section_ms, "section_db": section_db,
+            "section_plain_ms": section_plain_ms, "profile": prof}
 
 
 def optimizer_pipe(port, x, dev, optimize: bool, retunes=()):
@@ -629,7 +845,7 @@ def optimizer_pipe(port, x, dev, optimize: bool, retunes=()):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts(by_thread=True)
-    launches = counts.get("pipe-exec-line0", {}).get("iir_tiles", 0)
+    launches = counts.get("pipe-exec-line0", {}).get("biquad_section", 0)
     return {"y": np.concatenate(out, axis=1), "gain": g, "eq": peq,
             "n_procs": len(p.routes[0].processors), "launches": launches,
             "wall": wall}
@@ -646,7 +862,7 @@ def check_optimizer(port, dev, x) -> dict:
     from pipe_tpu_torch.signal import snr_db
 
     blocks = -(-x.shape[1] // B4)
-    want = 4 * blocks if dev.type == "cuda" else 0
+    want = 2 * blocks if dev.type == "cuda" else 0
     runs, res = {}, {"launches": {}, "walls": {}}
     for opt in (True, False):
         for retunes in ((), ("eq",), ("eq", "gain")):
@@ -810,14 +1026,21 @@ def main() -> None:
     lib = kernels.build()
     say(4, f"built {lib.relative_to(HERE)} in {time.perf_counter() - t0:.2f} s")
 
-    kres = {}
+    kres, sres = {}, {}
     for i, shape in enumerate(KERNEL_SHAPES):
-        r = check_kernel(dev, shape, seed=10 + i)
-        kres[shape] = r
-        say(5, "iir_tiles {}x{} (both EQ sections): vs plain {} dB, vs "
-               "float64 {} dB, max abs err {:.3g}; kernel {:.4f} ms, plain "
-               "{:.4f} ms".format(*shape, r["snr_plain_db"], r["snr_f64_db"],
-                                  r["max_abs_err"], r["ms"], r["plain_ms"]))
+        kres[shape] = check_kernel(dev, shape, seed=10 + i)
+        sres[shape] = check_section(dev, shape, seed=20 + i)
+        for what, r in (("iir_tiles", kres[shape]),
+                        ("biquad_section", sres[shape])):
+            say(5, "{} {}x{} (both EQ sections): vs plain {} dB, vs float64 "
+                   "{} dB, max abs err {:.3g}; {:.4f} ms a call back to back, "
+                   "{:.4f} ms on the device alone (CUDA graph), plain {:.4f} "
+                   "ms, bound {:.5f} ms ({}){}; on {}".format(
+                       what, *shape, r["snr_plain_db"], r["snr_f64_db"],
+                       r["max_abs_err"], r["ms"], r["device_ms"],
+                       r["plain_ms"], r["bound_ms"], r["bound_by"],
+                       f", new s vs plain {min(r['snr_state_db'])} dB at least"
+                       if "snr_state_db" in r else "", card))
 
     fres = check_flagship(dev)
     say(6, "flagship 64ch x 4 chunks of 9408: " + ", ".join(
@@ -825,11 +1048,18 @@ def main() -> None:
 
     x = np.random.default_rng(3).standard_normal(
         (CHANNELS, SR_IN * SECONDS)).astype(np.float32)
-    run_slice(port, x[:, : 2 * BLOCK], dev)  # warm-up (library, cuDNN plans)
+    stream_res = check_streamed_recurrence(dev, x)
+    say(5, f"recurrence streamed through _iir_apply, {stream_res['blocks']} "
+           f"blocks of ({CHANNELS}, 10240) with carried state: iir_tiles "
+           f"launches {stream_res['launches']}, vs float64 lfilter "
+           f"{stream_res['f64_db']:.1f} dB")
+
+    require(port.default_device() == dev, "the port's default device is the card")
+    run_slice(port, x[:, : 2 * BLOCK])  # warm-up (library, cuDNN plans)
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    y_card, blocks = run_slice(port, x, dev)
+    y_card, blocks = run_slice(port, x)  # no device given: the default
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -837,26 +1067,37 @@ def main() -> None:
     require(y_card.shape == (2, n_out), f"slice output {y_card.shape} != (2, {n_out})")
     require(np.isfinite(y_card).all(), "slice output finite")
     require(blocks == 47, f"{blocks} blocks dispatched, expected 47")
-    require(launches["iir_tiles"] == 4 * blocks,
-            f"iir_tiles launched {launches['iir_tiles']} times for {blocks} blocks")
+    require(launches["biquad_section"] == 2 * blocks,
+            f"biquad_section launched {launches['biquad_section']} times for "
+            f"{blocks} blocks")
+    require(launches["iir_tiles"] == 0,
+            "the slice launched the recurrence kernel outside a section")
     y_cpu, _ = run_slice(port, x, torch.device("cpu"))
     cpu_db = snr_db(y_cpu, y_card)
     require(cpu_db >= 100, f"slice card vs CPU port {cpu_db:.1f} dB")
     f64_db = snr_db(slice_oracle(x), y_card)
     require(f64_db >= 100, f"slice card vs float64 oracle {f64_db:.1f} dB")
     rate = CHANNELS * SR_IN * SECONDS / wall
+    sprof = device_profile(lambda: run_slice(port, x[:, : 10 * BLOCK]), 10)
+    idle = 1.0 - sprof["device_ms"] / 10 / (1e3 * wall / blocks)
     say(7, f"slice {CHANNELS}ch x {SECONDS}s @ {SR_IN} Hz, block {BLOCK}: "
-           f"{blocks} blocks, out {y_card.shape}, iir_tiles launches "
-           f"{launches['iir_tiles']}, vs CPU port {cpu_db:.1f} dB, vs float64 "
+           f"{blocks} blocks, out {y_card.shape}, biquad_section launches "
+           f"{launches['biquad_section']}, vs CPU port {cpu_db:.1f} dB, vs float64 "
            f"{f64_db:.1f} dB, {wall:.3f} s wall = {rate:.4g} samples/s "
-           f"({SECONDS / wall:.1f}x real time) on {card}")
+           f"({SECONDS / wall:.1f}x real time); profile of 10 blocks: device "
+           f"{sprof['device_ms']:.3f} ms, "
+           + ", ".join(f"{k} {v:.3f} ms ({100 * sprof['share'][k]:.1f} %)"
+                       for k, v in sprof["ms"].items())
+           + f", biquad kernels us each {sprof['biquad_us']}"
+           + f", {sprof['launches_per_block']:.1f} launches/block, device idle "
+             f"{100 * idle:.1f} % of the unprofiled wall a block; on {card}")
 
     pres = check_pipe_slice(port, dev, x)
     la_rates = ", ".join(f"{k}: " + " / ".join(f"{r:.4g}" for r in v)
                          for k, v in pres["rates"].items())
     say(8, f"slice through Pipe(lookahead=4) with live retune@{RETUNE_AT}, "
            f"insert@{INSERT_AT}, add_line after block {ADD_AFTER}: line A "
-           f"(2, {SR_IN * SECONDS * 160 // 147}), iir_tiles launches per "
+           f"(2, {SR_IN * SECONDS * 160 // 147}), biquad_section launches per "
            f"thread {pres['launches']}, vs CPU port {pres['cpu_db']:.1f} dB "
            f"(line B {pres['cpu_b_db']:.1f} dB), lookahead 4 vs 1 "
            f"{pres['la_db']:.1f} dB (max abs diff {pres['la_diff']:.3g}), "
@@ -871,18 +1112,24 @@ def main() -> None:
     x4 = np.random.default_rng(4).standard_normal((C4, N4)).astype(np.float32)
     c4 = check_config4(port, dev, x4)
     prof = c4["profile"]
+    idle4 = 1.0 - prof["device_ms"] / 10 / (1e3 * c4["wall"] / c4["blocks"])
     say(10, f"config 4 {C4}ch x {SECONDS}s, 65536-tap OLS + peaking EQ, "
-            f"block {B4}: {c4['blocks']} blocks, out {x4.shape}, iir_tiles "
+            f"block {B4}: {c4['blocks']} blocks, out {x4.shape}, biquad_section "
             f"launches {c4['launches']}, vs CPU port {c4['cpu_db']:.1f} dB, "
             f"vs float64 {c4['f64_db']:.1f} dB, {c4['wall']:.4f} s wall = "
             f"{c4['rate']:.4g} samples/s (CPU port {c4['cpu_wall']:.2f} s); "
             f"ols_block ({C4}, {B4}) {c4['ols_ms']:.4f} ms, iir_tiles "
             f"{c4['kernel_ms']:.4f} ms (plain {c4['plain_ms']:.4f} ms, "
-            f"{c4['kernel_db']:.1f} dB apart); "
+            f"{c4['kernel_db']:.1f} dB apart), biquad_section "
+            f"{c4['section_ms']:.4f} ms (plain {c4['section_plain_ms']:.4f} ms, "
+            f"{c4['section_db']:.1f} dB apart at 6824 frames); "
             f"profile of 10 blocks: device {prof['device_ms']:.3f} ms, "
             + ", ".join(f"{k} {v:.3f} ms ({100 * prof['share'][k]:.1f} %)"
                         for k, v in prof["ms"].items())
-            + f", {prof['launches_per_block']:.1f} launches/block; on {card}")
+            + f", biquad kernels us each {prof['biquad_us']}"
+            + f", {prof['launches_per_block']:.1f} launches/block, device idle "
+              f"{100 * idle4:.1f} % of the unprofiled wall a block, no eager "
+              f"biquad function and no float64 kernel ran; on {card}")
 
     ores = check_optimizer(port, dev, x4)
     say(11, f"optimizer Pipe(lookahead=4): fused {ores['fused']}; optimized "
@@ -901,24 +1148,39 @@ def main() -> None:
            if "f64_db" in v else "")
         for k, v in kit.items()) + f"; on {card}")
 
-    main_shape = kres[KERNEL_SHAPES[-1]]
-    by_path = {"run (phase 7)": launches["iir_tiles"],
-               "Pipe line A (phase 8)": pres["launches"]["pipe-exec-line0"],
-               "Pipe line B (phase 8)": pres["launches"]["pipe-exec-line1"],
-               "run config 4 (phase 10)": c4["launches"]}
-    by_path.update({f"Pipe {k} (phase 11)": v
-                    for k, v in ores["launches"].items()})
-    print(json.dumps({"kernels": [{
-        "name": "iir_tiles",
-        "route": "cuda",
-        "source": "pipe_tpu_torch/csrc/iir_tiles.cu",
-        "replaces": "pipe_tpu/ops/biquad.py:92",
-        "launches": sum(by_path.values()),
-        "launches_by_path": by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in kres.values()),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-    }]}), flush=True)
+    main_shape = KERNEL_SHAPES[-1]
+    section_paths = {"run (phase 7)": launches["biquad_section"],
+                     "Pipe line A (phase 8)": pres["launches"]["pipe-exec-line0"],
+                     "Pipe line B (phase 8)": pres["launches"]["pipe-exec-line1"],
+                     "run config 4 (phase 10)": c4["launches"]}
+    section_paths.update({f"Pipe {k} (phase 11)": v
+                          for k, v in ores["launches"].items()})
+    tiles_paths = {"_iir_apply stream (phase 5)": stream_res["launches"]}
+
+    def kernel_entry(name, by_path, results):
+        r = results[main_shape]
+        require(sum(by_path.values()) > 0, f"{name} was launched on no driven path")
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "pipe_tpu_torch/csrc/iir_tiles.cu",
+            "replaces": "pipe_tpu/ops/biquad.py:92",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(v["max_abs_err"] for v in results.values()),
+            "ms": r["ms"],
+            "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes either
+            "shape": list(main_shape),
+        }
+
+    print(json.dumps({"kernels": [
+        kernel_entry("iir_tiles", tiles_paths, kres),
+        kernel_entry("biquad_section", section_paths, sres),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
 

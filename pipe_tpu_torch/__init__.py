@@ -49,11 +49,14 @@ from pipe_tpu_torch.runtime import Pipe, run, wait
 from pipe_tpu_torch.profiling import StatsRecorder, trace
 from pipe_tpu_torch.offline import process
 from pipe_tpu_torch import checkpoint, config, mock, optimize
+from pipe_tpu_torch.config import default_device, set_default_device
 
 __version__ = "0.1.0"
 
 __all__ = [
     "config",
+    "default_device",
+    "set_default_device",
     "checkpoint",
     "mock",
     "optimize",

@@ -1,5 +1,11 @@
-"""Global numerics knobs: the float32 precision of matrix products and
-convolutions.
+"""Global knobs: the device the entry points default to, and the float32
+precision of matrix products and convolutions.
+
+``run``, ``Pipe``, ``process`` and ``make_flagship`` work on the card unless
+the caller asks for the CPU: with no ``device`` argument they take
+:func:`default_device`, which is the device given to
+:func:`set_default_device`, else the current CUDA device, and which raises
+where there is neither. It never falls back to the CPU by itself.
 
 On the card, a float32 ``torch.matmul`` runs in IEEE FP32 by default, but a
 float32 convolution goes through cuDNN in TF32 (about three decimal digits).
@@ -23,6 +29,36 @@ import torch
 _NAMED = {"default": "tf32", "highest": "ieee"}
 
 _matmul_precision = "highest"
+_default_device = None  # set by set_default_device; None: the current card
+
+
+def set_default_device(device) -> None:
+    """Make ``device`` (``"cpu"``, ``"cuda"``, ``"cuda:1"``, a
+    ``torch.device``) what the entry points use when they are given no
+    ``device``; ``None`` clears it, back to the current CUDA device."""
+    global _default_device
+    _default_device = None if device is None else torch.device(device)
+
+
+def default_device() -> torch.device:
+    """The device of an entry point called without ``device``: the one set
+    by :func:`set_default_device`, else the current CUDA device. Raises
+    ``RuntimeError`` when nothing was set and there is no card."""
+    if _default_device is not None:
+        return _default_device
+    if torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    raise RuntimeError(
+        "no CUDA card is available and no default device was set: pass "
+        'device="cpu" or call pipe_tpu_torch.set_default_device("cpu") to '
+        "run on the CPU"
+    )
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``, or :func:`default_device` for
+    ``None``."""
+    return default_device() if device is None else torch.device(device)
 
 
 def _apply(name: str) -> None:

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from pipe_tpu_torch.components import param_tensor
+from pipe_tpu_torch.config import resolve_device
 from pipe_tpu_torch.ops.fir import design_lowpass, fir_apply, fir_init_tail
 from pipe_tpu_torch.ops.fused import fused_apply
 from pipe_tpu_torch.ops.mix import channel_mix_block
@@ -26,7 +27,9 @@ def make_flagship(
     channels: int = 64, chunk: int = 147 * 64, mix_out: int = 2,
     fused: bool = True, device=None,
 ):
-    """Build ``(fn, init_state, example_x)`` on ``device``.
+    """Build ``(fn, init_state, example_x)`` on ``device`` (``None``:
+    :func:`pipe_tpu_torch.config.default_device`, the card unless the CPU
+    was asked for).
 
     ``fn(state, x) -> (state, y)`` processes one ``(channels, chunk)`` input
     chunk into ``(mix_out, chunk*160//147)`` output, carrying filter
@@ -36,6 +39,7 @@ def make_flagship(
     """
     if chunk % RS_DOWN:
         raise ValueError(f"chunk must be a multiple of {RS_DOWN}")
+    device = resolve_device(device)
     h = param_tensor(design_lowpass(FIR_TAPS, 4000.0, SAMPLE_RATE), device)
     hp = param_tensor(polyphase_design(RS_UP, RS_DOWN, RS_K), device)
     mix = param_tensor(np.ones((mix_out, channels)) / channels, device)

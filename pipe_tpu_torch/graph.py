@@ -8,9 +8,10 @@ source to the sink, and wraps allocator failures with the stage name.
 
 The port adds one thing to the threaded properties: the line's device. It
 is resolved once per route (the ``device`` argument, else the device the
-source declares, else ``torch.get_default_device()``) and stamped on every
-``SignalProperties`` an allocator receives or returns, including those of
-components re-allocated by live surgery.
+source declares, else ``pipe_tpu_torch.config.default_device()``: the
+card, unless the CPU was asked for with ``set_default_device("cpu")``) and
+stamped on every ``SignalProperties`` an allocator receives or returns,
+including those of components re-allocated by live surgery.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from pipe_tpu_torch import mutable
+from pipe_tpu_torch.config import default_device
 from pipe_tpu_torch.components import (
     Processor,
     ProcessorAllocatorFunc,
@@ -142,7 +144,7 @@ def make_route(line: Line, block_size: int, device=None) -> Route:
     elif source.output.device is not None:
         dev = torch.device(source.output.device)
     else:
-        dev = torch.get_default_device()
+        dev = default_device()
     source.output = _on(source.output, dev)
     # a source allocator is not told the device: move its tensors there
     to_dev = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x  # noqa: E731

@@ -7,17 +7,20 @@ hash of the sources and flags), and bound with ``ctypes``. A missing
 ``nvcc`` or a failed build raises: there is no fallback.
 
 Each wrapper checks its inputs and raises on what the kernel does not take,
-launches on ``torch.cuda.current_stream()``, raises if the launch reports a
-CUDA error, and counts its launches in a module-level integer
-(``iir_tiles_launches``) and per launching thread (:func:`launch_counts`),
-so a run can show that it went through the kernel. Executor threads launch
-kernels concurrently: the build and the counts are under locks.
+allocates outputs and scratch with ``torch.empty``, enqueues its kernels on
+``torch.cuda.current_stream()`` with one call into the library, raises if
+that reports a CUDA error, and counts the call per kernel name, in total and
+per launching thread (:func:`launch_counts`; ``iir_tiles_launches`` reads
+the ``iir_tiles`` entry), so a run can show that it went through the kernel.
+Executor threads launch kernels concurrently: the build and the counts are
+under locks, and scratch is per call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -38,11 +41,12 @@ IIR_TILE = 256  # tile length Q of the biquad kernel
 IIR_CHANNELS_PER_BLOCK = 8
 IIR_MIN_B = 2048
 
-iir_tiles_launches = 0
+KERNELS = ("iir_tiles", "biquad_section")  # the wrappers below
 
 _lib = None
 _lib_lock = threading.RLock()  # one build and one load per process
 _count_lock = threading.Lock()
+_launches = dict.fromkeys(KERNELS, 0)  # kernel name -> launches
 _thread_launches: dict = {}  # thread name -> {kernel name: launches}
 
 
@@ -106,10 +110,11 @@ def _library():
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(build()))
-        p = ctypes.c_void_p
-        lib.pipe_iir_tiles.argtypes = [p, p, p, p, p, ctypes.c_int,
-                                       ctypes.c_int, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pipe_iir_tiles.argtypes = [p, p, p, p, p, p, i, i, p]
         lib.pipe_iir_tiles.restype = ctypes.c_int
+        lib.pipe_biquad_section.argtypes = [p, p, p, p, i, i, p, p, p, p, i, i, p]
+        lib.pipe_biquad_section.restype = ctypes.c_int
         lib.pipe_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pipe_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -122,57 +127,129 @@ def _check_launch(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise ValueError(f"iir_tiles: {what}")
+def tile_gate(C: int, B: int) -> bool:
+    """Whether a (C, B) block is one the tile kernels take."""
+    return C % IIR_CHANNELS_PER_BLOCK == 0 and B % IIR_TILE == 0 and B >= IIR_MIN_B
+
+
+def _check_block(name: str, x: torch.Tensor, state, params) -> tuple:
+    """``x`` must be a float32 contiguous CUDA (C, B) block on the tile
+    gate, every ``(label, tensor)`` of ``state`` a (C, 2) tensor and every
+    ``(label, tensor, shape)`` of ``params`` of that many elements, all
+    float32, contiguous and on the same card. Returns (C, B); raises
+    ``ValueError`` naming the first thing the kernel does not take."""
+    C, B = x.shape if x.ndim == 2 else (0, 0)
+    dev = x.device
+
+    def ok(t, shape, exact):
+        return (t.dtype is torch.float32 and t.device == dev and t.is_contiguous()
+                and (t.shape == shape if exact else t.numel() == math.prod(shape)))
+
+    if (x.is_cuda and tile_gate(C, B) and ok(x, (C, B), True)
+            and all(ok(t, (C, 2), True) for _, t in state)
+            and all(ok(t, shape, False) for _, t, shape in params)):
+        return C, B
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the block must be a CUDA tensor, got {dev}")
+    if x.ndim != 2:
+        raise ValueError(f"{name}: the block must be (C, B), got {tuple(x.shape)}")
+    if not tile_gate(C, B):
+        raise ValueError(
+            f"{name}: block ({C}, {B}) is off the tile gate: C must be a "
+            "multiple of 8, B a multiple of 256 and >= 2048")
+    for label, t, shape, exact in (
+            ("the block", x, (C, B), True),
+            *((label, t, (C, 2), True) for label, t in state),
+            *((label, t, shape, False) for label, t, shape in params)):
+        if not ok(t, shape, exact):
+            raise ValueError(
+                f"{name}: {label} must be a contiguous float32 tensor of "
+                f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}, contiguous: {t.is_contiguous()}")
+    raise AssertionError("unreachable")
+
+
+# the current stream's handle without building a ``torch.cuda.Stream``
+# (tens of microseconds a call); absent from builds of torch without CUDA
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _current_stream(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _launch(name: str, device: torch.device, fn, *args) -> None:
+    """Call the library's ``fn(*args, stream)`` on ``device``'s current
+    stream, raise on a CUDA error, and count one launch of ``name``."""
+    lib = _library()
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, _current_stream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _current_stream(device.index))
+    _check_launch(lib, err, name)
+    _count(name)
 
 
 def iir_tiles(v: torch.Tensor, s: torch.Tensor, a1: torch.Tensor,
               a2: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel ``csrc/iir_tiles.cu``: ``y[n] = v[n] - a1 y[n-1] -
-    a2 y[n-2]`` over ``v`` (C, B) from the carried state ``s`` (C, 2) =
-    (y[-1], y[-2]). ``a1``/``a2`` are 0-d tensors on the same card (read by
-    the kernel, so no host sync). Needs float32 contiguous CUDA tensors,
-    ``C % 8 == 0``, ``B % 256 == 0`` and ``B >= 2048``."""
-    global iir_tiles_launches
-    _require(v.is_cuda, f"v must be a CUDA tensor, got {v.device}")
-    _require(v.ndim == 2, f"v must be (C, B), got shape {tuple(v.shape)}")
-    C, B = v.shape
-    _require(C % IIR_CHANNELS_PER_BLOCK == 0, f"C={C} is not a multiple of 8")
-    _require(B % IIR_TILE == 0 and B >= IIR_MIN_B,
-             f"B={B} must be a multiple of 256 and >= 2048")
-    _require(tuple(s.shape) == (C, 2), f"s must be ({C}, 2), got {tuple(s.shape)}")
-    for name, t in (("v", v), ("s", s), ("a1", a1), ("a2", a2)):
-        _require(t.device == v.device, f"{name} is on {t.device}, v on {v.device}")
-        _require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
-    _require(a1.numel() == 1 and a2.numel() == 1, "a1 and a2 must be scalars")
-    lib = _library()
+    """The tile-parallel recurrence of ``csrc/iir_tiles.cu``: ``y[n] = v[n]
+    - a1 y[n-1] - a2 y[n-2]`` over ``v`` (C, B) from the carried state ``s``
+    (C, 2) = (y[-1], y[-2]). ``a1``/``a2`` are 0-d tensors on the same card
+    (read by the kernel, so no host sync). Needs float32 contiguous CUDA
+    tensors, ``C % 8 == 0``, ``B % 256 == 0`` and ``B >= 2048``."""
+    C, B = _check_block("iir_tiles", v, (("s", s),),
+                        (("a1", a1, ()), ("a2", a2, ())))
     y = torch.empty_like(v)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = lib.pipe_iir_tiles(v.data_ptr(), s.data_ptr(), a1.data_ptr(),
-                                 a2.data_ptr(), y.data_ptr(), C, B, stream)
-    _check_launch(lib, err, "iir_tiles")
-    _count("iir_tiles")
+    zl = torch.empty(2 * C * (B // IIR_TILE), dtype=torch.float32, device=v.device)
+    _launch("iir_tiles", v.device, _library().pipe_iir_tiles,
+            v.data_ptr(), s.data_ptr(), a1.data_ptr(), a2.data_ptr(),
+            y.data_ptr(), zl.data_ptr(), C, B)
     return y
+
+
+def biquad_section(x: torch.Tensor, frames: int, x_tail: torch.Tensor,
+                   s: torch.Tensor, coefs: torch.Tensor, refine: bool = True):
+    """One biquad EQ section over a block in one call
+    (``csrc/iir_tiles.cu``): what
+    :func:`pipe_tpu_torch.ops.biquad.biquad_section_block` computes. ``x``
+    (C, B) is valid to the host int ``frames``; ``x_tail`` and ``s`` (C, 2)
+    are the carried state, ``coefs`` the live (6,) row [b0, b1, b2, 1, a1,
+    a2] on the card (read by the kernels, no host sync). Returns ``(y,
+    new_x_tail, new_s)``. Same tensor requirements as :func:`iir_tiles`."""
+    C, B = _check_block("biquad_section", x, (("x_tail", x_tail), ("s", s)),
+                        (("coefs", coefs, (6,)),))
+    frames = int(frames)
+    if not 0 <= frames <= B:
+        raise ValueError(f"biquad_section: frames={frames} outside [0, {B}]")
+    y = torch.empty_like(x)
+    new_x_tail, new_s = torch.empty(
+        (2, C, 2), dtype=torch.float32, device=x.device).unbind(0)
+    n_scratch = 4 * C * (B // IIR_TILE) + (C * B if refine else 0)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    _launch("biquad_section", x.device, _library().pipe_biquad_section,
+            x.data_ptr(), x_tail.data_ptr(), s.data_ptr(), coefs.data_ptr(),
+            frames, int(bool(refine)), y.data_ptr(), new_x_tail.data_ptr(),
+            new_s.data_ptr(), scratch.data_ptr(), C, B)
+    return y, new_x_tail, new_s
 
 
 def _count(name: str) -> None:
     """Add one launch of kernel ``name``, in total and for this thread."""
-    global iir_tiles_launches
     thread = threading.current_thread().name
     with _count_lock:
-        iir_tiles_launches += 1
+        _launches[name] = _launches.get(name, 0) + 1
         per = _thread_launches.setdefault(thread, {})
         per[name] = per.get(name, 0) + 1
 
 
 def reset_counts() -> None:
     """Set every launch count to 0."""
-    global iir_tiles_launches
     with _count_lock:
-        iir_tiles_launches = 0
+        _launches.clear()
+        _launches.update(dict.fromkeys(KERNELS, 0))
         _thread_launches.clear()
 
 
@@ -183,4 +260,10 @@ def launch_counts(by_thread: bool = False) -> dict:
     with _count_lock:
         if by_thread:
             return {t: dict(c) for t, c in _thread_launches.items()}
-        return {"iir_tiles": iir_tiles_launches}
+        return dict(_launches)
+
+
+def __getattr__(name: str):
+    if name == "iir_tiles_launches":  # the ``iir_tiles`` entry, read live
+        return launch_counts()["iir_tiles"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pipe_tpu_torch.components import Sink, Source
+from pipe_tpu_torch.config import resolve_device
 from pipe_tpu_torch.graph import Line
 from pipe_tpu_torch.runtime.driver import run
 from pipe_tpu_torch.signal import Signal, SignalProperties
@@ -25,14 +26,15 @@ def process(x, processors: Sequence, block_size: int = 4096,
             sample_rate: float = 44100.0, lookahead: int = 8,
             device=None) -> np.ndarray:
     """Run ``(channels, N)`` samples through a processor chain on
-    ``device``; returns the processed ``(channels, M)`` array (M differs
+    ``device`` (``None``: :func:`pipe_tpu_torch.config.default_device`, the
+    card unless the CPU was asked for); returns the processed ``(channels, M)`` array (M differs
     when rates change). The source holds the whole array on the device and
     its read position as a host int, so no block syncs."""
     x = np.asarray(x, np.float32)
     if x.ndim == 1:
         x = x[None, :]
     C, total = x.shape
-    dev = torch.device(device) if device is not None else torch.get_default_device()
+    dev = resolve_device(device)
 
     def src_alloc(mctx, block):
         padded = torch.zeros((C, total + block), dtype=torch.float32, device=dev)

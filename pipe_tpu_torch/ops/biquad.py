@@ -2,15 +2,22 @@
 ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``, with one refinement pass.
 
 The PyTorch counterpart of :mod:`pipe_tpu.ops.biquad`'s default float32
-path. :func:`_iir_apply` picks how the recurrence runs:
+path. A section's block on the card that passes the tile gate
+(``B % 256 == 0``, ``B >= 2048``, ``C % 8 == 0``) is one call of the
+hand-written CUDA kernels (``kernels.biquad_section``: the FIR part, the
+recurrence, the refinement pass and the state update together); every
+other block takes the same steps as eager ops
+(:func:`_biquad_section_ref`). :func:`_iir_apply` picks how the recurrence
+alone runs:
 
-- ``'kernel'``: the hand-written CUDA kernel (``csrc/iir_tiles.cu``, the
+- ``'kernel'``: the hand-written CUDA kernel (``kernels.iir_tiles``, the
   port of the TPU's Pallas tile kernel). Taken for every CUDA tensor that
-  passes the tile gate (``B % 256 == 0``, ``B >= 2048``, ``C % 8 == 0``).
-- ``'tiles'``: its plain PyTorch version (:func:`_iir_tiles_ref`), a loop
-  over 256-sample tiles, each one ``(C, 256) @ (256, 256)`` product with the
-  lower-triangular Toeplitz matrix of the impulse response plus a rank-2
-  boundary term. Taken for CPU tensors that pass the gate.
+  passes the tile gate.
+- ``'tiles'``: its plain PyTorch version (:func:`_iir_tiles_ref`) in the
+  kernel's three passes over 256-sample tiles: every tile's product with
+  the lower-triangular Toeplitz matrix of the impulse response at once,
+  the (C, 2) carries from tile to tile, and the rank-2 boundary term added
+  to all tiles. Taken for CPU tensors that pass the gate.
 - ``'assoc'``: the affine recurrence over 2-vectors,
   ``s[n] = A s[n-1] + u[n]``, evaluated by prefix doubling over
   ``(A, u)`` pairs in float64 (see :func:`_iir_assoc`). Taken for blocks
@@ -38,7 +45,6 @@ from pipe_tpu_torch.ops.prims import dynamic_slice, prefix_scan
 from pipe_tpu_torch.signal import Signal, zero_past
 
 _TILE_Q = kernels.IIR_TILE
-_TILE_MIN_B = kernels.IIR_MIN_B
 
 
 def _iir_sequences(a1, a2, Q: int):
@@ -69,15 +75,22 @@ def _iir_sequences(a1, a2, Q: int):
 
 
 def _iir_tiles_ref(v, s, TlT, ab, Q: int):
-    """Plain version of the tile kernel: carry (C, 2) = (y[-1], y[-2])."""
-    ys = []
-    carry = s
-    for t in range(v.shape[1] // Q):
-        y = v[:, t * Q: (t + 1) * Q] @ TlT
-        y = y + carry[:, 0:1] * ab[0:1, :] + carry[:, 1:2] * ab[1:2, :]
-        carry = torch.stack([y[:, -1], y[:, -2]], dim=1)
-        ys.append(y)
-    return torch.cat(ys, dim=1)
+    """Plain version of the tile kernel, in its three passes; ``s`` and
+    every carry are (C, 2) = (y[-1], y[-2]) of a tile."""
+    C, B = v.shape
+    T = B // Q
+    # 1. zero-state products of all tiles at once
+    z = (v.reshape(C * T, Q) @ TlT).reshape(C, T, Q)
+    # 2. the carries, tile by tile: a tile's last two outputs
+    carries, carry = [], s
+    for t in range(T):
+        carries.append(carry)
+        last = (z[:, t, Q - 2:] + carry[:, 0:1] * ab[0, Q - 2:]
+                + carry[:, 1:2] * ab[1, Q - 2:])
+        carry = last.flip(1)
+    c = torch.stack(carries, dim=1)  # (C, T, 2)
+    # 3. the boundary term of every tile
+    return (z + c[:, :, 0:1] * ab[0] + c[:, :, 1:2] * ab[1]).reshape(C, B)
 
 
 def _iir_assoc(v, s, a1, a2):
@@ -129,12 +142,10 @@ def _iir_apply(v, s, a1, a2, force: str | None = None):
     plain version on the CPU; other blocks take the prefix-doubling path.
     ``force`` pins a path: 'assoc' | 'tiles' | 'kernel'.
     """
-    C, B = v.shape
     Q = _TILE_Q
     path = force
     if path is None:
-        tiled_ok = B % Q == 0 and B >= _TILE_MIN_B and C % 8 == 0
-        if tiled_ok:
+        if kernels.tile_gate(*v.shape):
             path = "kernel" if v.is_cuda else "tiles"
         else:
             path = "assoc"
@@ -278,7 +289,7 @@ def _iir_apply_dd(v_dd, s_dd, a1_dd, a2_dd):
     return _dd_apply_boundary(_iir_scan_dd(v_dd, a1_dd, a2_dd), s_dd)
 
 
-def _iir_refine(v, s, y, a1, a2):
+def _iir_refine(v, s, y, a1, a2, path: str | None = None):
     """One step of iterative refinement on the pole recurrence: compute the
     defect ``r[n] = v[n] - (y[n] + a1 y[n-1] + a2 y[n-2])`` and add the
     filtered defect back (the defect is ~2^-24 of the signal, so the
@@ -291,7 +302,34 @@ def _iir_refine(v, s, y, a1, a2):
     yp = torch.cat([s.flip(1), y], dim=1).double()  # [y[-2], y[-1], y...]
     r = v.double() - (y.double() + a1.double() * yp[:, 1:-1]
                       + a2.double() * yp[:, :-2])
-    return y + _iir_apply(r.float(), torch.zeros_like(s), a1, a2)
+    return y + _iir_apply(r.float(), torch.zeros_like(s), a1, a2, force=path)
+
+
+def _biquad_section_ref(state, x, frames: int, coefs, refine: bool = True):
+    """One block through one biquad section as eager ops: the plain version
+    of ``kernels.biquad_section``. Same contract as
+    :func:`biquad_section_block`. The recurrence takes ``'tiles'`` for a
+    block on the tile gate and ``'assoc'`` otherwise, never the kernel."""
+    b0, b1, b2 = coefs[0], coefs[1], coefs[2]
+    a1, a2 = coefs[4], coefs[5]
+    xm = zero_past(x, frames)
+    path = "tiles" if kernels.tile_gate(*x.shape) else "assoc"
+
+    # FIR part v[n] = b0 x[n] + b1 x[n-1] + b2 x[n-2] with carried tail
+    buf = torch.cat([state["x_tail"], xm], dim=1)  # (C, B+2)
+    v = b0 * buf[:, 2:] + b1 * buf[:, 1:-1] + b2 * buf[:, :-2]
+
+    s_init = state["s"]
+    y = _iir_apply(v, s_init, a1, a2, force=path)
+    if refine:
+        y = _iir_refine(v, s_init, y, a1, a2, path)
+
+    # state after the last VALID frame: y_hist[k] = y[k-2], so it is
+    # (y_hist[frames+1], y_hist[frames]); frames=0 keeps the carried state
+    y_hist = torch.cat([s_init[:, 1:2], s_init[:, 0:1], y], dim=1)
+    new_s = y_hist[:, frames: frames + 2].flip(1)
+    new_x_tail = buf[:, frames: frames + 2].contiguous()
+    return {"x_tail": new_x_tail, "s": new_s}, y
 
 
 def biquad_section_block(state, x, frames: int, coefs, refine: bool = True):
@@ -300,26 +338,17 @@ def biquad_section_block(state, x, frames: int, coefs, refine: bool = True):
     ``state``: dict with ``x_tail`` (C, 2) and ``s`` (C, 2) =
     (y[n-1], y[n-2]); ``x``: (C, B) valid to ``frames``; ``coefs``: (6,)
     [b0, b1, b2, 1, a1, a2]. Returns ``(new_state, y)``.
+
+    A block on the card that passes the tile gate is one call of the CUDA
+    kernels (or raises: there is no fallback); every other block runs
+    :func:`_biquad_section_ref`.
     """
-    b0, b1, b2 = coefs[0], coefs[1], coefs[2]
-    a1, a2 = coefs[4], coefs[5]
-    xm = zero_past(x, frames)
-
-    # FIR part v[n] = b0 x[n] + b1 x[n-1] + b2 x[n-2] with carried tail
-    buf = torch.cat([state["x_tail"], xm], dim=1)  # (C, B+2)
-    v = b0 * buf[:, 2:] + b1 * buf[:, 1:-1] + b2 * buf[:, :-2]
-
-    s_init = state["s"]
-    y = _iir_apply(v, s_init, a1, a2)
-    if refine:
-        y = _iir_refine(v, s_init, y, a1, a2)
-
-    # state after the last VALID frame: y_hist[k] = y[k-2], so it is
-    # (y_hist[frames+1], y_hist[frames]); frames=0 keeps the carried state
-    y_hist = torch.cat([s_init[:, 1:2], s_init[:, 0:1], y], dim=1)
-    new_s = y_hist[:, frames: frames + 2].flip(1)
-    new_x_tail = buf[:, frames: frames + 2].contiguous()
-    return {"x_tail": new_x_tail, "s": new_s}, y
+    if x.is_cuda and kernels.tile_gate(*x.shape):
+        y, new_x_tail, new_s = kernels.biquad_section(
+            x.contiguous(), frames, state["x_tail"].contiguous(),
+            state["s"].contiguous(), coefs.contiguous(), refine)
+        return {"x_tail": new_x_tail, "s": new_s}, y
+    return _biquad_section_ref(state, x, frames, coefs, refine)
 
 
 def biquad_section_block_extended(state, x, frames: int, coefs, coefs_lo):

@@ -66,7 +66,9 @@ def run(block_size: int, *lines: Line, stats=None, lookahead: int = 1,
     by a single :class:`MultiLineExecutor` in the calling thread.
 
     ``device`` is where the lines' streams live (default: the device each
-    source declares, else ``torch.get_default_device()``). ``stats`` is an
+    source declares, else ``pipe_tpu_torch.config.default_device()``: the
+    card, unless the CPU was asked for with ``set_default_device("cpu")``).
+    ``stats`` is an
     optional :class:`pipe_tpu_torch.StatsRecorder`. ``cancel`` is an
     optional ``threading.Event``: setting it stops the run at the next
     block boundary with flush hooks run. ``lookahead`` keeps that many

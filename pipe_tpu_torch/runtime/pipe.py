@@ -122,8 +122,9 @@ class Pipe:
     """A graph of bound lines (``pipe.go:14-30,105-126``).
 
     ``device`` is where the lines' streams live (default: the device each
-    source declares, else ``torch.get_default_device()``); ``lookahead``
-    and ``batch_blocks`` are the executor's dispatch knobs
+    source declares, else ``pipe_tpu_torch.config.default_device()``: the
+    card, unless the CPU was asked for with ``set_default_device("cpu")``);
+    ``lookahead`` and ``batch_blocks`` are the executor's dispatch knobs
     (:class:`~pipe_tpu_torch.runtime.executor.LineExecutor`); ``stats`` an
     optional :class:`~pipe_tpu_torch.profiling.StatsRecorder`."""
 

@@ -20,6 +20,8 @@ from pipe_tpu_torch import mock, mutable, ops
 from pipe_tpu_torch.components import Source
 from pipe_tpu_torch.signal import SignalProperties, snr_db
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 BLOCK = 256
 KNOBS = [(1, 1), (4, 1), (1, 4), (4, 4)]
 KNOB_IDS = [f"la{a}-bb{b}" for a, b in KNOBS]

@@ -28,6 +28,8 @@ from tests.test_torch_ops import (
     stream_chunks,
 )
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 SNR_TARGET = 100.0
 
 

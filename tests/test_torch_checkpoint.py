@@ -21,6 +21,8 @@ from pipe_tpu_torch import checkpoint
 from pipe_tpu_torch.signal import snr_db
 from pipe_tpu_torch.tree import tree_flatten, tree_unflatten
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 C, BLOCK = 8, 2352
 N = 7 * BLOCK + 500
 

@@ -7,9 +7,12 @@ import numpy as np
 import pytest
 import torch
 
+import pipe_tpu_torch
 from pipe_tpu import flagship as jflag
 from pipe_tpu_torch import convert, flagship as tflag
 from pipe_tpu_torch.signal import snr_db
+
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
 
 C, CHUNK = 8, 147 * 16
 

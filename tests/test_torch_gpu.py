@@ -16,7 +16,13 @@ import torch
 
 import pipe_tpu_torch
 from pipe_tpu_torch import checkpoint, config, kernels, mock, ops
-from pipe_tpu_torch.ops.biquad import _iir_apply, biquad_block, biquad_init_state
+from pipe_tpu_torch.ops.biquad import (
+    _biquad_section_ref,
+    _iir_apply,
+    biquad_block,
+    biquad_init_state,
+    biquad_section_block,
+)
 from pipe_tpu_torch.signal import SignalProperties, snr_db
 
 
@@ -35,10 +41,25 @@ def _recurrence_inputs(device, C, B, seed=0):
     return v, s, torch.tensor(sos[4], device=device), torch.tensor(sos[5], device=device)
 
 
+def _section_inputs(device, C, B, seed=0, row=None):
+    rng = np.random.default_rng(seed)
+    if row is None:
+        row = ops.design_peaking_eq(48000, 1000, 1.0, 3.0)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return (t(rng.standard_normal((C, B))), t(rng.standard_normal((C, 2))),
+            t(rng.standard_normal((C, 2))), t(row))
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
-    """No fallback: the wrapper raises on what the kernel does not take."""
+    """No fallback: the wrappers raise on what the kernels do not take."""
     with pytest.raises(ValueError, match="CUDA"):
         kernels.iir_tiles(*_recurrence_inputs("cpu", 8, 2048))
+    x, x_tail, s, coefs = _section_inputs("cpu", 8, 2048)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.biquad_section(x, 2048, x_tail, s, coefs)
 
 
 @pytest.mark.gpu
@@ -47,6 +68,23 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_kernel_wrapper_refuses_shapes_off_the_gate(cuda, shape):
     with pytest.raises(ValueError):
         kernels.iir_tiles(*_recurrence_inputs(cuda, *shape))
+    x, x_tail, s, coefs = _section_inputs(cuda, *shape)
+    with pytest.raises(ValueError):
+        kernels.biquad_section(x, shape[1], x_tail, s, coefs)
+
+
+@pytest.mark.gpu
+def test_section_wrapper_refuses_bad_arguments(cuda):
+    x, x_tail, s, coefs = _section_inputs(cuda, 8, 2048)
+    for frames in (-1, 2049):
+        with pytest.raises(ValueError, match="frames"):
+            kernels.biquad_section(x, frames, x_tail, s, coefs)
+    with pytest.raises(ValueError, match="x_tail"):
+        kernels.biquad_section(x, 2048, x_tail.T.contiguous(), s, coefs)
+    with pytest.raises(ValueError, match="coefs"):
+        kernels.biquad_section(x, 2048, x_tail, s, coefs.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.biquad_section(x.T.contiguous().T, 2048, x_tail, s, coefs)
 
 
 @pytest.mark.gpu
@@ -83,11 +121,86 @@ def test_iir_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("refine", [True, False], ids=["refine", "plain"])
+@pytest.mark.parametrize("shape", [(8, 4096), (16, 8192), (64, 10240)])
+def test_section_kernel_matches_plain(cuda, shape, refine):
+    """``kernels.biquad_section`` against the eager section on the card, for
+    both EQ sections and blocks valid to B, 6824 (or B - 1), 1 and 0
+    frames: the output >= 110 dB, the new ``x_tail`` exactly (it is
+    copied), the new ``s`` exactly the kernel's own last two valid outputs
+    (the carried state before them) and >= 110 dB from the eager
+    section's, the output's own bar. One launch a call."""
+    C, B = shape
+    rows = (ops.design_peaking_eq(48000, 1000, 1.0, 3.0),
+            ops.design_highshelf(48000, 8000, -2.0))
+    for row in rows:
+        x, x_tail, s, coefs = _section_inputs(cuda, C, B, seed=3, row=row)
+        for frames in (B, 6824 if B > 6824 else B - 1, 1, 0):
+            before = kernels.launch_counts()["biquad_section"]
+            st, y = biquad_section_block({"x_tail": x_tail, "s": s}, x, frames,
+                                         coefs, refine=refine)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["biquad_section"] == before + 1
+            ref_st, ref = _biquad_section_ref({"x_tail": x_tail, "s": s}, x,
+                                              frames, coefs, refine=refine)
+            assert snr_db(ref.cpu().numpy(), y.cpu().numpy()) >= 110
+            assert torch.equal(st["x_tail"], ref_st["x_tail"])
+            y_hist = torch.cat([s.flip(1), y], dim=1)
+            assert torch.equal(st["s"], y_hist[:, frames: frames + 2].flip(1))
+            assert snr_db(ref_st["s"].cpu().numpy(), st["s"].cpu().numpy()) >= 110
+            assert all(v.is_contiguous() and v.shape == (C, 2) for v in st.values())
+
+
+@pytest.mark.gpu
+def test_section_off_the_gate_runs_eager_on_the_card(cuda):
+    """A CUDA block that fails the tile gate takes the eager section (the
+    prefix-doubling recurrence) and launches no kernel."""
+    x, x_tail, s, coefs = _section_inputs(cuda, 2, 512)
+    before = kernels.launch_counts()
+    st, y = biquad_section_block({"x_tail": x_tail, "s": s}, x, 500, coefs)
+    ref_st, ref = _biquad_section_ref({"x_tail": x_tail, "s": s}, x, 500, coefs)
+    assert kernels.launch_counts() == before
+    assert torch.equal(y, ref) and torch.equal(st["s"], ref_st["s"])
+
+
+@pytest.mark.gpu
+def test_run_without_device_runs_on_the_card(cuda, monkeypatch):
+    """With no ``device`` and no default set, ``run`` puts the line's state
+    on ``cuda:0``, and ``process`` and ``make_flagship`` work there too."""
+    from pipe_tpu_torch.flagship import make_flagship
+
+    monkeypatch.setattr(config, "_default_device", None)
+    assert pipe_tpu_torch.default_device() == torch.device("cuda", 0)
+    routes = []
+    eq = ops.Biquad(ops.design_peaking_eq(48000, 1000, 1.0, 3.0))
+
+    def spy(mctx, block, props):
+        proc = eq.processor()(mctx, block, props)
+        routes.append(proc)
+        return proc
+
+    sink = mock.Sink()
+    before = kernels.launch_counts()["biquad_section"]
+    pipe_tpu_torch.run(2048, pipe_tpu_torch.Line(
+        source=mock.Source(value=0.5, channels=8, limit=3 * 2048).source(),
+        processors=[spy], sink=sink.sink()))
+    assert kernels.launch_counts()["biquad_section"] == before + 3
+    assert routes[0].state[0]["s"].device == torch.device("cuda", 0)
+    assert sink.values.shape == (8, 3 * 2048)
+    y = pipe_tpu_torch.process(np.ones((8, 4096), np.float32),
+                               [eq.processor()], block_size=2048)
+    assert y.shape == (8, 4096) and np.isfinite(y).all()
+    fn, state, x = make_flagship(channels=8, chunk=147 * 4)
+    assert x.device == state[0].device == torch.device("cuda", 0)
+    assert fn(state, x)[1].device == torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
 def test_kernel_streams_near_dc_section(cuda):
     """A 20 Hz q=0.5 section at 44.1 kHz over 16 blocks of (8, 2048)
-    through the kernel (2 launches a block): the kernel forms its impulse
-    responses in float64 as the plain version does, so the stream holds
-    the 60 dB that tests/test_torch_biquad.py asks of the CPU path."""
+    through the section kernel (1 launch a block): the kernels form the
+    impulse responses in float64 as the plain version does, so the stream
+    holds the 60 dB that tests/test_torch_biquad.py asks of the CPU path."""
     import scipy.signal
 
     sos = ops.design_peaking_eq(44100, 20.0, 0.5, 6.0)[None]
@@ -96,20 +209,23 @@ def test_kernel_streams_near_dc_section(cuda):
     ref = scipy.signal.sosfilt(sos, x.astype(np.float64), axis=1)
     coefs = torch.tensor(sos, dtype=torch.float32, device=cuda)
     state = biquad_init_state(8, 1, cuda)
-    before = kernels.iir_tiles_launches
+    before = kernels.launch_counts()
     ys = []
     for t in range(16):
         xb = torch.from_numpy(x[:, t * 2048:(t + 1) * 2048]).to(cuda)
         state, y = biquad_block(state, xb, 2048, coefs)
         ys.append(y.cpu().numpy())
-    assert kernels.iir_tiles_launches == before + 32
+    after = kernels.launch_counts()
+    assert after["biquad_section"] == before["biquad_section"] + 16
+    assert after["iir_tiles"] == before["iir_tiles"]
     assert snr_db(ref, np.concatenate(ys, 1)) >= 60
 
 
 @pytest.mark.gpu
 def test_slice_line_on_card_matches_cpu(cuda):
     """The slice's line at 8 channels: the card's output (through the
-    kernel, 4 launches per block) agrees with the CPU's at >= 100 dB."""
+    section kernel, 2 launches per block) agrees with the CPU's at >= 100
+    dB."""
     C, block = 8, 2352
     x = np.random.default_rng(3).standard_normal((C, 3 * block + 500)).astype(np.float32)
     outs = {}
@@ -134,10 +250,12 @@ def test_slice_line_on_card_matches_cpu(cuda):
             ],
             sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=got.append),
         )
-        before = kernels.iir_tiles_launches
+        before = kernels.launch_counts()
         pipe_tpu_torch.run(block, line, device=device)
-        launched = kernels.iir_tiles_launches - before
-        assert launched == (16 if device.type == "cuda" else 0)
+        after = kernels.launch_counts()
+        launched = after["biquad_section"] - before["biquad_section"]
+        assert launched == (8 if device.type == "cuda" else 0)
+        assert after["iir_tiles"] == before["iir_tiles"]
         outs[device.type] = np.concatenate(got, 1)
     assert outs["cuda"].shape == outs["cpu"].shape
     assert snr_db(outs["cpu"], outs["cuda"]) > 100
@@ -171,8 +289,9 @@ def test_ols_block_on_card_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_biquad_cascade_launches_twice_per_section(cuda):
     """A fused run of biquads (optimize.fuse -> BiquadCascade) launches the
-    kernel 2 x sections per block (forward and refinement pass) and agrees
-    with the CPU at >= 100 dB."""
+    section kernel once per section and block (the name dates from the
+    form with one launch for each of the forward and refinement passes)
+    and agrees with the CPU at >= 100 dB."""
     from pipe_tpu_torch import optimize
 
     C, B, n_blocks = 16, 8192, 3
@@ -187,7 +306,7 @@ def test_biquad_cascade_launches_twice_per_section(cuda):
             source=None, sink=None, processors=[e.processor() for e in eqs]))
         assert len(line.processors) == 1
         got = []
-        before = kernels.iir_tiles_launches
+        before = kernels.launch_counts()["biquad_section"]
         stream_line = pipe_tpu_torch.Line(
             source=lambda m, b: pipe_tpu_torch.Source(
                 output=SignalProperties(44100.0, C),
@@ -195,8 +314,8 @@ def test_biquad_cascade_launches_twice_per_section(cuda):
             processors=line.processors,
             sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=got.append))
         pipe_tpu_torch.run(B, stream_line, device=dev)
-        launched = kernels.iir_tiles_launches - before
-        assert launched == (2 * 3 * n_blocks if dev.type == "cuda" else 0)
+        launched = kernels.launch_counts()["biquad_section"] - before
+        assert launched == (3 * n_blocks if dev.type == "cuda" else 0)
         outs[dev.type] = np.concatenate(got, 1)
     assert snr_db(outs["cpu"], outs["cuda"]) > 100
 
@@ -256,14 +375,16 @@ def test_library_builds_once_under_threads(monkeypatch):
 
 
 def test_launch_counts_exact_under_threads():
-    """8 threads counting 2,000 launches each with a short switch interval:
-    no increment is lost, in total or per thread."""
+    """8 threads counting 2,000 launches each with a short switch interval,
+    half of them of each kernel: no increment is lost, in total or per
+    thread, and each kernel keeps its own count."""
     kernels.reset_counts()
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(
-            target=lambda: [kernels._count("iir_tiles") for _ in range(2000)],
+            target=lambda k=kernels.KERNELS[i % 2]: [
+                kernels._count(k) for _ in range(2000)],
             name=f"counter{i}") for i in range(8)]
         for t in threads:
             t.start()
@@ -272,27 +393,36 @@ def test_launch_counts_exact_under_threads():
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
-    assert kernels.launch_counts() == {"iir_tiles": 16000}
-    per = kernels.launch_counts(by_thread=True)
-    assert {t: per[t]["iir_tiles"] for t in per} == {
-        f"counter{i}": 2000 for i in range(8)}
+    assert kernels.launch_counts() == {"iir_tiles": 8000, "biquad_section": 8000}
+    assert kernels.iir_tiles_launches == 8000
+    assert kernels.launch_counts(by_thread=True) == {
+        f"counter{i}": {kernels.KERNELS[i % 2]: 2000} for i in range(8)}
     kernels.reset_counts()
-    assert kernels.launch_counts() == {"iir_tiles": 0}
+    assert kernels.launch_counts() == {"iir_tiles": 0, "biquad_section": 0}
+    assert kernels.iir_tiles_launches == 0
     assert kernels.launch_counts(by_thread=True) == {}
 
 
 @pytest.mark.gpu
 def test_kernel_from_two_threads(cuda):
-    """Two threads launching the kernel at once: the exact launch count, and
-    outputs equal to the same launches from one thread."""
+    """Two threads launching both kernels at once (each call has scratch of
+    its own): the exact launch counts, and outputs equal to the same
+    launches from one thread."""
     args = [_recurrence_inputs(cuda, 64, 10240, seed=s) for s in (4, 5)]
-    single = [kernels.iir_tiles(*a) for a in args]
+    sec = [_section_inputs(cuda, 64, 10240, seed=s) for s in (6, 7)]
+
+    def both(i):
+        x, x_tail, s, coefs = sec[i]
+        return torch.cat([kernels.iir_tiles(*args[i]),
+                          kernels.biquad_section(x, 10000, x_tail, s, coefs)[0]])
+
+    single = [both(i) for i in range(2)]
     torch.cuda.synchronize()
     kernels.reset_counts()
     outs = {}
 
     def worker(i):
-        outs[i] = [kernels.iir_tiles(*args[i]) for _ in range(20)]
+        outs[i] = [both(i) for _ in range(20)]
 
     threads = [threading.Thread(target=worker, args=(i,), name=f"k{i}")
                for i in range(2)]
@@ -302,9 +432,9 @@ def test_kernel_from_two_threads(cuda):
         t.join(120)
     torch.cuda.synchronize()
     assert not any(t.is_alive() for t in threads)
-    assert kernels.launch_counts() == {"iir_tiles": 40}
+    assert kernels.launch_counts() == {"iir_tiles": 40, "biquad_section": 40}
     assert kernels.launch_counts(by_thread=True) == {
-        "k0": {"iir_tiles": 20}, "k1": {"iir_tiles": 20}}
+        f"k{i}": {"iir_tiles": 20, "biquad_section": 20} for i in range(2)}
     for i in range(2):
         for y in outs[i]:
             assert torch.equal(y, single[i])

@@ -8,10 +8,13 @@ import numpy as np
 import pytest
 import torch
 
+import pipe_tpu_torch
 from pipe_tpu import mock as jmock
 from pipe_tpu import mutable as jmutable
 from pipe_tpu_torch import mock, mutable
 from pipe_tpu_torch.signal import Signal, SignalProperties
+
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
 
 
 def drive_source(src: mock.Source, block_size: int, max_steps=10_000):

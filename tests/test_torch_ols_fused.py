@@ -24,6 +24,8 @@ from pipe_tpu_torch.ops.biquad import _two_prod, _two_sum
 from pipe_tpu_torch.signal import Signal, SignalProperties, snr_db
 from tests.test_torch_ops import assert_twins_agree, step_twins, stream
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 SNR_TARGET = 100.0
 # the kappa-floor section of tests/test_ops.py and a 1 kHz section
 EXT_ROWS = np.stack([

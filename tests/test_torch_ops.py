@@ -17,6 +17,8 @@ from pipe_tpu_torch import ops as tops
 from pipe_tpu_torch.ops import fir as tfir, fused as tfused, resample as trs
 from pipe_tpu_torch.signal import snr_db
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 AGREE_DB = 110
 
 

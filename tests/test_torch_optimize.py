@@ -39,6 +39,8 @@ from pipe_tpu_torch.signal import Signal, SignalProperties, snr_db
 from tests.test_ops import _resample_oracle
 from tests.test_torch_ops import stream
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 
 def stream_through(procs, x, block, sr=44100.0):
     return stream(pipe_tpu_torch, procs, x, block, sr)

@@ -22,6 +22,8 @@ from pipe_tpu_torch.signal import (
     to_numpy,
 )
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 PKG = pathlib.Path(pipe_tpu_torch.__file__).parent
 REPO = PKG.parent
 

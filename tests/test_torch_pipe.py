@@ -17,6 +17,8 @@ from pipe_tpu_torch.components import Source
 from pipe_tpu_torch.errors import PipeError, RunError
 from pipe_tpu_torch.signal import SignalProperties, snr_db
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 BLOCK = 512
 N_BLOCKS = 862  # pipe_test.go:84 — 862 x 512-frame buffers
 

@@ -28,6 +28,8 @@ from pipe_tpu_torch.runtime import (
 from pipe_tpu_torch.signal import Signal, SignalProperties, snr_db
 from test_torch_ops import stream
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 C, BLOCK = 8, 2352  # the resampler emits 2560 = 10 * 256 frames per block
 
 

@@ -17,6 +17,8 @@ from pipe_tpu_torch.components import Sink, Source
 from pipe_tpu_torch.errors import RunError
 from pipe_tpu_torch.signal import SignalProperties, snr_db
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 
 def test_soak_mutations_and_surgery():
     """~200 blocks under a barrage of pushes, two live inserts and a live

@@ -30,6 +30,8 @@ from pipe_tpu_torch.ops.spectral import (
 from pipe_tpu_torch.signal import snr_db
 from tests.test_torch_ops import assert_twins_agree, step_twins, stream
 
+pipe_tpu_torch.set_default_device("cpu")  # these tests ask for the CPU
+
 SNR_TARGET = 100.0
 
 
