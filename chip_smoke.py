@@ -24,9 +24,12 @@ the card (``cuda:0``), in phases, each printing one line:
    bar: the state is two samples a channel of it, so its SNR scatters
    more than the whole block's); both timed with CUDA events, back to
    back and as a replayed CUDA graph (device time alone), beside their
-   bound. Then the recurrence streamed: 43 blocks of (64, 10240) through
-   ``_iir_apply`` with the state carried, >= 90 dB against a float64
-   ``lfilter``, one ``iir_tiles`` launch a block;
+   bound. ``iir_tiles`` alone is held and timed the same way at the local
+   blocks that the sharded chain of phases 15 and 16 gives it: (64,
+   327680), (32, 20480) and (64, 40960). Then the recurrence streamed: 43
+   blocks of (64, 10240) through ``_iir_apply`` with the state carried,
+   >= 90 dB against a float64 ``lfilter``, one ``iir_tiles`` launch a
+   block;
 6. ``make_flagship(64, 147*64)``, fused and unfused, four chained chunks:
    >= 100 dB against the same chunks run by the port on the CPU, and
    >= 100 dB between fused and unfused;
@@ -81,7 +84,37 @@ the card (``cuda:0``), in phases, each printing one line:
     ``NoiseGate``, ``SpectralGain``/``SpectralGate`` (W 1024, H 256), a
     16-bin ``Channelizer``, the AM and FM demod chains, and
     ``Biquad(precision='extended')`` on a 20 Hz kappa-floor section (also
-    against float64, and timed against the default path).
+    against float64, and timed against the default path);
+13. WAV files on the card: phase 10's feed written with the native
+    ``WavWriter`` to a temporary directory, ``WavSource -> OLS + peaking EQ
+    -> WavSink`` through ``run`` at block 8192 with no ``device``; the file
+    read back equals phase 10's output bit for bit; the native library is
+    required (``native.available()``); samples/s printed;
+14. the precision table: FIR(255), the resampler and a seeded random 64->2
+    mix at (64, 9408) and the slice as a whole, dB against float64 and ms (CUDA events
+    for the ops, synchronized wall for the slice) under ``'highest'``,
+    ``'high'`` (3xTF32) and ``'default'``; ``'high'`` must read >= 100 dB on
+    the slice; and the biquad's bits do not move with the knob on the
+    kernel path and in a sharded ``BiquadStage`` (phase 3 holds the plain
+    versions to the same);
+15. the sharded main path on one rank at full width: a 1x1 mesh (no process
+    group), 64 channels, ``FIRStage(255) -> ResampleStage(48000, 44100, 32)
+    -> BiquadStage(peaking 1 kHz) -> BiquadStage(high shelf 8 kHz) ->
+    MixStage(64->2)`` at chunks of 147*2048 frames, 4 chunks: >= 100 dB
+    against the float64 oracle of phase 7 and against the streaming slice
+    of phase 7 fed the same samples; ``iir_tiles`` launched exactly 2 passes
+    x 2 sections x 4 chunks = 16 times; samples/s printed;
+16. four ranks: the same chain at chunks of 4*9408 frames on a 1x4 and a 2x2
+    mesh in four spawned processes, on four cards over NCCL where the
+    machine has them, else all on the one card over gloo with the host
+    transport (printed); every rank's ``iir_tiles`` launches exactly 16 a
+    mesh; the gathered output >= 100 dB against the 1x1 chain's for the same
+    input and identical on all ranks; the carries after the last chunk
+    equal on the ranks of one channel row; samples/s printed (on one card
+    this measures the transport).
+
+``python3 chip_smoke.py --four-ranks`` runs phase 16 alone (after phases 1,
+2 and the build), for a machine with four cards, where it takes NCCL.
 
 Then one JSON line with each kernel entry point's launches on each path,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Any
@@ -109,7 +142,9 @@ CHANNELS = 64
 BLOCK = 147 * 64  # 9408 input frames -> 10240 = 40 * 256 resampled frames
 SECONDS = 10
 C4, B4 = 16, 8192  # BASELINE config 4: 16 channels, 8192-frame blocks
-# every shape a path gives the kernel; the last one is the slice's
+# every shape the streaming paths give either kernel; the last one is the
+# slice's (the sharded chain's shapes, for ``iir_tiles`` alone, are
+# SHARDED_SHAPES below)
 KERNEL_SHAPES = ((8, 4096), (C4, B4), (CHANNELS, 10240))
 N4 = SR_IN * SECONDS
 EQ_AT, GAIN_AT = 20, 30  # phase 11's retune blocks
@@ -800,7 +835,7 @@ def check_config4(port, dev, x) -> dict:
         require(not eager, f"eager biquad functions ran on the card: {eager[:4]}")
         require(not prof["float64_kernels"],
                 f"float64 kernels in config 4's profile: {prof['float64_kernels']}")
-    return {"blocks": blocks, "launches": launches, "wall": wall,
+    return {"blocks": blocks, "launches": launches, "wall": wall, "y": y,
             "rate": x.size / wall, "cpu_db": cpu_db, "f64_db": f64_db,
             "cpu_wall": t_cpu, "ols_ms": ols_ms, "kernel_ms": kernel_ms,
             "kernel_db": kernel_db, "plain_ms": plain_ms,
@@ -987,7 +1022,393 @@ def check_kit(port, dev) -> dict:
     return res
 
 
-def main() -> None:
+PRECISIONS = ("highest", "high", "default")
+CHUNK15 = 147 * 2048  # BASELINE config 5's chunk: 301056 frames, 77 MB at 64 ch
+CHUNKS15 = 4
+CHUNK16 = 4 * BLOCK  # 37632 frames: 10240 resampled frames a rank on 1x4
+CHUNKS16 = 4
+MESHES16 = ((1, 4), (2, 2))
+SEED16 = 16
+# the local blocks that the sharded chain's BiquadStage gives ``iir_tiles``
+# beyond KERNEL_SHAPES: phase 15's chunk, and phase 16's 2x2 mesh and 1x1
+# chain (its 1x4 mesh gives the slice's shape)
+SHARDED_SHAPES = ((CHANNELS, CHUNK15 * 160 // 147),
+                  (CHANNELS // 2, CHUNK16 * 160 // 147 // 2),
+                  (CHANNELS, CHUNK16 * 160 // 147))
+
+
+def check_knob_on_plain_biquad(dev) -> int:
+    """Phase 3: the biquad's plain versions on the card give the same bits
+    under every precision name (their products do not follow the backends'
+    TF32 flags). Returns the number of paths compared."""
+    import torch
+
+    from pipe_tpu_torch import config
+    from pipe_tpu_torch.ops import biquad
+
+    rng = np.random.default_rng(30)
+    sos = eq_sos()[0]
+    coefs = torch.tensor(np.float32(sos), device=dev)
+    hi, lo = (torch.tensor(a, device=dev) for a in biquad.split_f32_pair(sos))
+    x = torch.tensor(rng.standard_normal((8, 2560)), dtype=torch.float32, device=dev)
+    s = torch.tensor(rng.standard_normal((8, 2)), dtype=torch.float32, device=dev)
+    paths = {
+        "_iir_apply(force='tiles')": lambda: biquad._iir_apply(
+            x, s, coefs[4], coefs[5], force="tiles"),
+        "_iir_apply(force='assoc')": lambda: biquad._iir_apply(
+            x, s, coefs[4], coefs[5], force="assoc"),
+        "_biquad_section_ref": lambda: biquad._biquad_section_ref(
+            {"x_tail": s, "s": s}, x, 2560, coefs)[1],
+        "biquad_section_block_extended": lambda: biquad.biquad_section_block_extended(
+            {"x_tail": s, "s": s, "s_lo": torch.zeros_like(s)}, x, 2560, hi, lo)[1],
+    }
+    for what, fn in paths.items():
+        outs = []
+        for name in PRECISIONS:
+            with config.matmul_precision_scope(name):
+                outs.append(fn())
+        require(all(torch.equal(o, outs[0]) for o in outs[1:]),
+                f"{what} moves with the precision knob on the card")
+    require(config.fp32_pinned(), "the precision is back at 'highest'")
+    return len(paths)
+
+
+def read_wav(native, path):
+    r = native.WavReader(str(path))
+    try:
+        return r.read(r.total_frames + 1).T, r.sample_rate
+    finally:
+        r.close()
+
+
+def check_wav(port, x, want) -> dict:
+    """Phase 13 (see the module docstring): ``x`` is phase 10's feed,
+    ``want`` phase 10's output."""
+    import tempfile
+
+    import torch
+
+    from pipe_tpu_torch import kernels, native, ops
+
+    require(native.available(),
+            f"the native library did not build: {native.build_error()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp) / "in.wav", Path(tmp) / "out.wav"
+        w = native.WavWriter(str(src), x.shape[0], SR_IN, 32)
+        require(w.write(np.ascontiguousarray(x.T)) == x.shape[1], "WAV frames written")
+        w.close()
+        source = port.WavSource(str(src))
+        require((source.channels, source.sample_rate, source.total_frames)
+                == (x.shape[0], SR_IN, x.shape[1]), "WAV header read back")
+        sink = port.WavSink(str(dst), bits=32)
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port.run(B4, port.Line(
+            source=source.source(),
+            processors=[ops.OLSConvolve(config4_ir()).processor(),
+                        ops.Biquad(peaking_sos()).processor()],
+            sink=sink.sink()))  # no device: the port's default, the card
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()["biquad_section"]
+        got, rate = read_wav(native, dst)
+    blocks = -(-x.shape[1] // B4)
+    require(rate == SR_IN and got.shape == want.shape,
+            f"WAV out {got.shape} at {rate} Hz, expected {want.shape}")
+    require(sink.frames_written == x.shape[1], "WavSink.frames_written")
+    require(launches == blocks,
+            f"biquad_section launched {launches} times for {blocks} blocks")
+    require(np.array_equal(got, want),
+            "the WAV file differs from phase 10's output "
+            f"(max abs diff {np.max(np.abs(got - want)):.3g})")
+    return {"blocks": blocks, "launches": launches, "wall": wall,
+            "rate": x.size / wall}
+
+
+def check_precision(port, dev, x, oracle) -> dict:
+    """Phase 14 (see the module docstring): ``x`` and ``oracle`` are phase
+    7's feed and float64 oracle."""
+    import torch
+
+    from pipe_tpu_torch import config, kernels, ops, parallel
+    from pipe_tpu_torch.ops.fir import fir_apply
+    from pipe_tpu_torch.ops.mix import channel_mix_block
+    from pipe_tpu_torch.ops.resample import resample_apply
+    from pipe_tpu_torch.signal import snr_db
+
+    rng = np.random.default_rng(14)
+    host = {
+        "x": rng.standard_normal((CHANNELS, BLOCK)).astype(np.float32),
+        "tail": rng.standard_normal((CHANNELS, 254)).astype(np.float32),
+        "h": np.float32(ops.design_lowpass(255, 4000, SR_IN)),
+        "hp": np.float32(ops.polyphase_design(160, 147, 32)),
+        # seeded and not TF32-exact, so that all three products of 'high'
+        # carry weight (the slice's 1/64 has no remainder)
+        "m": np.float32(rng.standard_normal((2, CHANNELS)) / CHANNELS),
+    }
+    card = {k: torch.tensor(v, device=dev) for k, v in host.items()}
+    f64 = {k: torch.tensor(v, dtype=torch.float64) for k, v in host.items()}
+    sites = {
+        "FIR(255)": lambda d: fir_apply(d["tail"], d["x"], d["h"]),
+        "resampler 160/147": lambda d: resample_apply(
+            d["tail"][:, :31], d["x"], d["hp"], 160, 147),
+        "mix 64->2": lambda d: channel_mix_block(d["x"], d["m"]),
+    }
+    res = {}
+    for what, fn in sites.items():
+        ref = fn(f64).numpy()
+        res[what] = {}
+        for name in PRECISIONS:
+            with config.matmul_precision_scope(name):
+                y = fn(card).cpu().numpy()
+                ms = cuda_ms(lambda: fn(card), iters=50)
+            res[what][name] = {"db": float(snr_db(ref, y)), "ms": ms}
+    res["slice"] = {}
+    for name in PRECISIONS:
+        with config.matmul_precision_scope(name):
+            run_slice(port, x[:, : 2 * BLOCK])  # warm-up: cuDNN plans
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, _ = run_slice(port, x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        res["slice"][name] = {"db": float(snr_db(oracle, y)), "ms": 1e3 * wall}
+    require(config.fp32_pinned(), "the precision is back at 'highest'")
+    require(res["slice"]["high"]["db"] >= 100,
+            f"the slice under 'high' {res['slice']['high']['db']:.1f} dB < 100")
+    require(res["slice"]["highest"]["db"] >= 100, "the slice under 'highest'")
+
+    # the knob does not move the biquad: the kernel and a sharded stage
+    sos = eq_sos()[0]
+    coefs = torch.tensor(np.float32(sos), device=dev)
+    xb = torch.tensor(rng.standard_normal((CHANNELS, 10240)), dtype=torch.float32,
+                      device=dev)
+    s = torch.tensor(rng.standard_normal((CHANNELS, 2)), dtype=torch.float32,
+                     device=dev)
+
+    def sharded():
+        chain = parallel.ShardedChain(parallel.make_mesh(1, 1),
+                                      [parallel.BiquadStage(sos)], CHANNELS, 10240)
+        return chain.step(xb)
+
+    fixed = {
+        "kernels.iir_tiles": lambda: kernels.iir_tiles(xb, s, coefs[4], coefs[5]),
+        "kernels.biquad_section": lambda: kernels.biquad_section(
+            xb, 10240, s, s, coefs)[0],
+        "ShardedChain BiquadStage": sharded,
+    }
+    for what, fn in fixed.items():
+        outs = []
+        for name in PRECISIONS:
+            with config.matmul_precision_scope(name):
+                outs.append(fn())
+        require(all(torch.equal(o, outs[0]) for o in outs[1:]),
+                f"{what} moves with the precision knob")
+    res["fixed"] = list(fixed)
+    return res
+
+
+def main_path_stages(parallel):
+    """The sharded main path: BASELINE config 5 (FIR -> resample -> merged
+    mix) with the slice's two EQ sections before the mix."""
+    from pipe_tpu_torch import ops
+
+    sos = eq_sos()
+    return [parallel.FIRStage(ops.design_lowpass(255, 4000, SR_IN)),
+            parallel.ResampleStage(SR_OUT, SR_IN, 32),
+            parallel.BiquadStage(sos[0]), parallel.BiquadStage(sos[1]),
+            parallel.MixStage(np.ones((2, CHANNELS)) / CHANNELS)]
+
+
+def run_chain(chain, x, chunk: int):
+    """Stream ``x`` through ``chain`` chunk by chunk; the gathered output on
+    the host and the synchronized wall time."""
+    import torch
+
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(x.shape[1] // chunk):
+        outs.append(chain.gather(chain.step(x[:, i * chunk:(i + 1) * chunk])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return torch.cat(outs, dim=1).cpu().numpy(), wall
+
+
+def check_sharded_one_rank(port, dev) -> dict:
+    """Phase 15 (see the module docstring)."""
+    from pipe_tpu_torch import kernels, parallel
+    from pipe_tpu_torch.signal import snr_db
+
+    x = np.random.default_rng(15).standard_normal(
+        (CHANNELS, CHUNKS15 * CHUNK15)).astype(np.float32)
+    mesh = parallel.make_mesh(1, 1)
+    require(mesh.size == 1 and mesh.transport is None, "a 1x1 mesh needs no group")
+    warm = parallel.ShardedChain(mesh, main_path_stages(parallel), CHANNELS, CHUNK15)
+    run_chain(warm, x[:, :CHUNK15], CHUNK15)
+    del warm
+    chain = parallel.ShardedChain(mesh, main_path_stages(parallel), CHANNELS, CHUNK15)
+    require(chain.device == dev, f"the chain's device {chain.device} is the card")
+    kernels.reset_counts()
+    y, wall = run_chain(chain, x, CHUNK15)
+    launches = kernels.launch_counts()
+    n_out = x.shape[1] * 160 // 147
+    require(y.shape == (2, n_out) and np.isfinite(y).all(),
+            f"sharded output {y.shape} != (2, {n_out})")
+    want = 2 * 2 * CHUNKS15
+    require(launches["iir_tiles"] == want,
+            f"iir_tiles launched {launches['iir_tiles']} times, expected {want}")
+    require(launches["biquad_section"] == 0,
+            "the sharded stage launched the one-section kernel")
+    f64_db = float(snr_db(slice_oracle(x), y))
+    require(f64_db >= 100, f"sharded 1x1 vs float64 oracle {f64_db:.1f} dB")
+    y_stream, _ = run_slice(port, x)
+    stream_db = float(snr_db(y_stream, y))
+    require(stream_db >= 100, f"sharded 1x1 vs the streaming slice {stream_db:.1f} dB")
+    prof = device_profile(lambda: run_chain(chain, x[:, :CHUNK15], CHUNK15), 1)
+    return {"launches": launches["iir_tiles"], "wall": wall,
+            "rate": x.size / wall, "f64_db": f64_db, "stream_db": stream_db,
+            "comm": chain.last_comm, "profile": prof}
+
+
+def input16():
+    return np.random.default_rng(SEED16).standard_normal(
+        (CHANNELS, CHUNKS16 * CHUNK16)).astype(np.float32)
+
+
+def rank_main(rank: int, world: int, port_no: int, transport: str, out_dir: str):
+    """One rank of phase 16: the main path's chain on every mesh of
+    ``MESHES16``; writes ``rank<r>.npz`` (launch counts, walls, the local
+    carries, and from rank 0 the gathered outputs) into ``out_dir``."""
+    import torch
+
+    import_port()
+    from pipe_tpu_torch import kernels, parallel
+    from pipe_tpu_torch.convert import tree_to_numpy
+    from pipe_tpu_torch.tree import tree_flatten
+
+    torch.cuda.set_device(rank if transport == "nccl" else 0)
+    parallel.initialize(f"localhost:{port_no}", num_processes=world,
+                        process_id=rank, transport=transport)
+    x = input16()
+    saved = {}
+    for c, t in MESHES16:
+        mesh = parallel.make_mesh(c, t)
+        require(mesh.member and mesh.transport == transport, f"mesh {c}x{t}")
+        warm = parallel.ShardedChain(mesh, main_path_stages(parallel), CHANNELS,
+                                     CHUNK16)
+        run_chain(warm, x[:, :CHUNK16], CHUNK16)
+        chain = parallel.ShardedChain(mesh, main_path_stages(parallel), CHANNELS,
+                                      CHUNK16)
+        mesh.reset_stats()
+        kernels.reset_counts()
+        y, wall = run_chain(chain, x, CHUNK16)
+        key = f"{c}x{t}"
+        saved[f"{key}/launches"] = kernels.launch_counts()["iir_tiles"]
+        saved[f"{key}/sections"] = kernels.launch_counts()["biquad_section"]
+        saved[f"{key}/wall"] = wall
+        saved[f"{key}/position"] = [mesh.axis_index(parallel.CH_AXIS),
+                                    mesh.axis_index(parallel.TIME_AXIS)]
+        saved[f"{key}/comm_calls"] = sum(v[0] for v in mesh.stats.values())
+        saved[f"{key}/comm_bytes"] = sum(v[1] for v in mesh.stats.values())
+        saved[f"{key}/comm_seconds"] = sum(mesh.seconds.values())
+        saved[f"{key}/y"] = y
+        for i, leaf in enumerate(tree_flatten(tree_to_numpy(chain.carries))[0]):
+            saved[f"{key}/carry{i}"] = leaf
+    np.savez(Path(out_dir) / f"rank{rank}.npz", **saved)
+    parallel.shutdown()
+
+
+def check_four_ranks(dev, count: int) -> dict:
+    """Phase 16 (see the module docstring)."""
+    import socket
+    import tempfile
+
+    from pipe_tpu_torch import kernels, parallel
+    from pipe_tpu_torch.signal import snr_db
+
+    world = 4
+    transport = "nccl" if count >= world else "gloo+host"
+    x = input16()
+    ref_chain = parallel.ShardedChain(parallel.make_mesh(1, 1),
+                                      main_path_stages(parallel), CHANNELS, CHUNK16)
+    run_chain(parallel.ShardedChain(parallel.make_mesh(1, 1),
+                                    main_path_stages(parallel), CHANNELS,
+                                    CHUNK16), x[:, :CHUNK16], CHUNK16)  # warm-up
+    y_ref, ref_wall = run_chain(ref_chain, x, CHUNK16)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port_no = sock.getsockname()[1]
+    res = {"transport": transport, "ref_rate": x.size / ref_wall, "meshes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--rank", str(r),
+             str(world), str(port_no), transport, tmp]) for r in range(world)]
+        try:
+            deadline = time.monotonic() + 300
+            for r, p in enumerate(procs):
+                rc = p.wait(max(1.0, deadline - time.monotonic()))
+                require(rc == 0, f"rank {r} exited with code {rc}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        ranks = [dict(np.load(Path(tmp) / f"rank{r}.npz")) for r in range(world)]
+    want = 2 * 2 * CHUNKS16
+    for c, t in MESHES16:
+        key = f"{c}x{t}"
+        launches = [int(r[f"{key}/launches"]) for r in ranks]
+        require(launches == [want] * world,
+                f"mesh {key}: iir_tiles launches per rank {launches}, expected {want}")
+        require(all(int(r[f"{key}/sections"]) == 0 for r in ranks),
+                f"mesh {key}: the one-section kernel was launched")
+        y = ranks[0][f"{key}/y"]
+        require(y.shape == y_ref.shape and np.isfinite(y).all(),
+                f"mesh {key}: output {y.shape}")
+        require(all(np.array_equal(r[f"{key}/y"], y) for r in ranks[1:]),
+                f"mesh {key}: the ranks gathered different outputs")
+        db = float(snr_db(y_ref, y))
+        require(db >= 100, f"mesh {key} vs the 1x1 chain {db:.1f} dB")
+        rows = {}
+        for r in ranks:
+            rows.setdefault(int(r[f"{key}/position"][0]), []).append(r)
+        n_carries = sum(1 for k in ranks[0] if k.startswith(f"{key}/carry"))
+        for row in rows.values():
+            for other in row[1:]:
+                for i in range(n_carries):
+                    require(np.array_equal(row[0][f"{key}/carry{i}"],
+                                           other[f"{key}/carry{i}"]),
+                            f"mesh {key}: carry {i} differs inside a channel row")
+        wall = max(float(r[f"{key}/wall"]) for r in ranks)
+        res["meshes"][key] = {"launches": launches, "db": db, "wall": wall,
+                               "rate": x.size / wall, "carries": n_carries,
+                               "comm_calls": int(ranks[0][f"{key}/comm_calls"]),
+                               "comm_bytes": int(ranks[0][f"{key}/comm_bytes"]),
+                               "comm_seconds": [float(r[f"{key}/comm_seconds"])
+                                                for r in ranks]}
+    return res
+
+
+def say_four_ranks(s16: dict, card: str) -> None:
+    say(16, f"transport: {s16['transport']}; four ranks, {CHANNELS} ch, "
+            f"{CHUNKS16} chunks of {CHUNK16}: " + "; ".join(
+                f"mesh {k}: iir_tiles launches per rank {v['launches']}, vs the "
+                f"1x1 chain {v['db']:.1f} dB, {v['carries']} carries equal "
+                f"inside each channel row, {v['wall']:.4f} s wall = "
+                f"{v['rate']:.4g} samples/s, rank 0 made {v['comm_calls']} "
+                f"collective calls moving {v['comm_bytes']} bytes, host seconds "
+                f"inside collectives per rank (waiting for peers included) "
+                + "/".join(f"{t:.4f}" for t in v["comm_seconds"])
+                for k, v in s16["meshes"].items())
+        + f"; the 1x1 chain at the same chunk in one process "
+          f"{s16['ref_rate']:.4g} samples/s; on {card}")
+
+
+def main(only_four_ranks: bool = False) -> None:
+    """Every phase; with ``only_four_ranks`` (``--four-ranks``, for a machine
+    with four cards) phases 1, 2 and 4 and then phase 16 alone."""
     import torch
 
     say(1, f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1009,6 +1430,13 @@ def main() -> None:
     from pipe_tpu_torch import config, kernels
     from pipe_tpu_torch.signal import snr_db
 
+    if only_four_ranks:
+        kernels.build()
+        say_four_ranks(check_four_ranks(dev, count), card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": count}}), flush=True)
+        return
+
     require(config.fp32_pinned(), "IEEE FP32 pinned for cuBLAS and cuDNN")
     rng = np.random.default_rng(0)
     a = rng.standard_normal((16, 128, 300)).astype(np.float32)
@@ -1019,8 +1447,10 @@ def main() -> None:
                                      torch.from_numpy(w).double()).numpy()
     conv_db = snr_db(ref, conv)
     require(conv_db >= 100, f"float32 conv on the card vs float64: {conv_db:.1f} dB")
+    n_fixed = check_knob_on_plain_biquad(dev)
     say(3, f"fp32 pinned (matmul {config.matmul_precision()}); "
-           f"card conv1d vs float64 {conv_db:.1f} dB")
+           f"card conv1d vs float64 {conv_db:.1f} dB; the biquad's {n_fixed} "
+           f"plain paths give the same bits under {PRECISIONS}")
 
     t0 = time.perf_counter()
     lib = kernels.build()
@@ -1041,6 +1471,15 @@ def main() -> None:
                        r["plain_ms"], r["bound_ms"], r["bound_by"],
                        f", new s vs plain {min(r['snr_state_db'])} dB at least"
                        if "snr_state_db" in r else "", card))
+    for i, shape in enumerate(SHARDED_SHAPES):
+        kres[shape] = r = check_kernel(dev, shape, seed=40 + i)
+        say(5, "iir_tiles {}x{} (a sharded chain's local block, both EQ "
+               "sections): vs plain {} dB, vs float64 {} dB, max abs err "
+               "{:.3g}; {:.4f} ms a call back to back, {:.4f} ms on the device "
+               "alone (CUDA graph), plain {:.4f} ms, bound {:.5f} ms ({}); on "
+               "{}".format(*shape, r["snr_plain_db"], r["snr_f64_db"],
+                           r["max_abs_err"], r["ms"], r["device_ms"],
+                           r["plain_ms"], r["bound_ms"], r["bound_by"], card))
 
     fres = check_flagship(dev)
     say(6, "flagship 64ch x 4 chunks of 9408: " + ", ".join(
@@ -1075,7 +1514,8 @@ def main() -> None:
     y_cpu, _ = run_slice(port, x, torch.device("cpu"))
     cpu_db = snr_db(y_cpu, y_card)
     require(cpu_db >= 100, f"slice card vs CPU port {cpu_db:.1f} dB")
-    f64_db = snr_db(slice_oracle(x), y_card)
+    oracle7 = slice_oracle(x)
+    f64_db = snr_db(oracle7, y_card)
     require(f64_db >= 100, f"slice card vs float64 oracle {f64_db:.1f} dB")
     rate = CHANNELS * SR_IN * SECONDS / wall
     sprof = device_profile(lambda: run_slice(port, x[:, : 10 * BLOCK]), 10)
@@ -1148,6 +1588,41 @@ def main() -> None:
            if "f64_db" in v else "")
         for k, v in kit.items()) + f"; on {card}")
 
+    wres = check_wav(port, x4, c4["y"])
+    say(13, f"WAV {C4}ch x {SECONDS}s float32 through WavSource -> OLS + "
+            f"peaking EQ -> WavSink, block {B4}, native library built: "
+            f"{wres['blocks']} blocks, biquad_section launches "
+            f"{wres['launches']}, the file read back equals phase 10's output "
+            f"bit for bit, {wres['wall']:.4f} s wall = {wres['rate']:.4g} "
+            f"samples/s; on {card}")
+
+    pr = check_precision(port, dev, x, oracle7)
+    say(14, "precision (dB vs float64, ms): " + "; ".join(
+        f"{what} at ({CHANNELS}, {BLOCK}): " + ", ".join(
+            f"{n} {v['db']:.1f} dB {v['ms']:.4f} ms" for n, v in by.items())
+        for what, by in pr.items() if what not in ("fixed", "slice"))
+        + "; slice (whole run, wall): " + ", ".join(
+            f"{n} {v['db']:.1f} dB {v['ms']:.1f} ms"
+            for n, v in pr["slice"].items())
+        + f"; same bits under every name: {pr['fixed']}; on {card}")
+
+    s15 = check_sharded_one_rank(port, dev)
+    say(15, f"ShardedChain 1x1 (no process group), {CHANNELS} ch, FIR(255) -> "
+            f"resample -> 2 x BiquadStage -> mix, {CHUNKS15} chunks of "
+            f"{CHUNK15}: iir_tiles launches {s15['launches']} (2 passes x 2 "
+            f"sections x {CHUNKS15} chunks), vs float64 {s15['f64_db']:.1f} dB, "
+            f"vs the streaming slice {s15['stream_db']:.1f} dB, "
+            f"{s15['wall']:.4f} s wall = {s15['rate']:.4g} samples/s, "
+            f"collectives a chunk {s15['comm']}; profile of one chunk: device "
+            f"{s15['profile']['device_ms']:.3f} ms, "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in s15["profile"]["ms"].items())
+            + f", {s15['profile']['launches_per_block']:.0f} launches, device "
+              f"idle {100 * (1 - s15['profile']['device_ms'] / (1e3 * s15['wall'] / CHUNKS15)):.1f} "
+              f"% of the unprofiled wall a chunk; on {card}")
+
+    s16 = check_four_ranks(dev, count)
+    say_four_ranks(s16, card)
+
     main_shape = KERNEL_SHAPES[-1]
     section_paths = {"run (phase 7)": launches["biquad_section"],
                      "Pipe line A (phase 8)": pres["launches"]["pipe-exec-line0"],
@@ -1155,7 +1630,10 @@ def main() -> None:
                      "run config 4 (phase 10)": c4["launches"]}
     section_paths.update({f"Pipe {k} (phase 11)": v
                           for k, v in ores["launches"].items()})
-    tiles_paths = {"_iir_apply stream (phase 5)": stream_res["launches"]}
+    tiles_paths = {"_iir_apply stream (phase 5)": stream_res["launches"],
+                   "ShardedChain 1x1 (phase 15)": s15["launches"]}
+    tiles_paths.update({f"ShardedChain {k}, each of 4 ranks (phase 16)":
+                        v["launches"][0] for k, v in s16["meshes"].items()})
 
     def kernel_entry(name, by_path, results):
         r = results[main_shape]
@@ -1175,6 +1653,10 @@ def main() -> None:
             "bound_by": r["bound_by"],
             "library_ms": None,  # no single PyTorch call computes either
             "shape": list(main_shape),
+            "other_shapes": [
+                {k: v[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
+                                   "plain_ms", "bound_ms", "bound_by")}
+                for shape, v in results.items() if shape != main_shape],
         }
 
     print(json.dumps({"kernels": [
@@ -1186,4 +1668,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":  # a rank of phase 16
+        rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5], sys.argv[6])
+    else:
+        main(only_four_ranks=sys.argv[1:] == ["--four-ranks"])

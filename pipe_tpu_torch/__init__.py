@@ -18,7 +18,11 @@ fused stages), the fusion optimizer (``optimize.fuse``, ``optimize=True``),
 the flagship chunk function, the runtime (the blocking ``run`` driver and
 the async ``Pipe`` with live ``push``/``at_block``, ``insert_processor``
 and ``add_line``, ``lookahead`` and ``batch_blocks``), the ``mock`` test
-kit, ``StatsRecorder``/``trace``, ``process`` and ``checkpoint``.
+kit, ``StatsRecorder``/``trace``, ``process`` and ``checkpoint``, WAV file
+I/O (``WavSource``/``WavSink`` over the native ring and codec), the
+``'high'`` (3xTF32) precision, and of ``parallel`` the mesh, the halo
+primitives and the ``ShardedChain`` with the stages of the sharded main
+path and the EQ, one process per shard over ``torch.distributed``.
 """
 
 from pipe_tpu_torch.signal import (
@@ -48,6 +52,7 @@ from pipe_tpu_torch.graph import Line, Processors
 from pipe_tpu_torch.runtime import Pipe, run, wait
 from pipe_tpu_torch.profiling import StatsRecorder, trace
 from pipe_tpu_torch.offline import process
+from pipe_tpu_torch.io import WavSource, WavSink
 from pipe_tpu_torch import checkpoint, config, mock, optimize
 from pipe_tpu_torch.config import default_device, set_default_device
 
@@ -85,4 +90,6 @@ __all__ = [
     "StatsRecorder",
     "trace",
     "process",
+    "WavSource",
+    "WavSink",
 ]

@@ -14,8 +14,27 @@ in TF32 the flagship chain would fall far below the 100 dB bar.
 
 ``'highest'`` (the default, applied when this module is imported) therefore
 pins IEEE FP32 for cuBLAS AND cuDNN. ``'default'`` allows TF32 in both.
-The knobs are torch's process-wide ``fp32_precision`` settings of the two
-backends; they take effect at the next call and change nothing on the CPU.
+``'high'`` is the three-pass emulation (3xTF32), the counterpart of the JAX
+package's ``'high'``: each float32 operand is split into a head that TF32
+holds exactly and the remainder, and the product is formed as ``a_hi b_hi +
+a_hi b_lo + a_lo b_hi``, three TF32 products accumulated in FP32. The JAX
+package's ``'mixed'`` has no counterpart and raises ``ValueError``.
+
+Every non-recursive product of the port (FIR, resampler, fused banks,
+mixer, channelizer) goes through :func:`matmul`, :func:`einsum` or
+:func:`conv1d` below, which read the precision name once per call and so
+take one product or three consistently within a call. The recursive paths
+(the biquad's tile product, its prefix scans and its defect) do not consult
+the knob at all: they compute in float64 or elementwise and give the same
+bits under every name.
+
+The knobs behind the names are torch's process-wide ``fp32_precision``
+settings of the two backends; they take effect at the next call and change
+nothing on the CPU. Process-wide means every thread: a
+:func:`matmul_precision_scope` entered in one thread changes the precision
+of products that the ``Pipe``'s executor threads compute while it is open,
+and two scopes open at once in two threads restore in whatever order they
+exit. Set the precision before starting pipes, or from one thread only.
 """
 
 from __future__ import annotations
@@ -24,9 +43,10 @@ from contextlib import contextmanager
 from typing import Iterator
 
 import torch
+import torch.nn.functional as F
 
 # precision name -> torch fp32_precision value for cuBLAS and cuDNN
-_NAMED = {"default": "tf32", "highest": "ieee"}
+_NAMED = {"default": "tf32", "high": "tf32", "highest": "ieee"}
 
 _matmul_precision = "highest"
 _default_device = None  # set by set_default_device; None: the current card
@@ -77,13 +97,12 @@ def fp32_pinned() -> bool:
 
 def set_matmul_precision(p: str) -> None:
     """Set the float32 precision of matmuls and convolutions:
-    ``'highest'`` (IEEE FP32) or ``'default'`` (TF32)."""
+    ``'highest'`` (IEEE FP32), ``'high'`` (3xTF32 through the helpers of
+    this module) or ``'default'`` (TF32)."""
     global _matmul_precision
     if not isinstance(p, str):
         raise TypeError(f"expected a precision name, got {type(p)!r}")
     name = p.lower()
-    if name == "high":
-        raise NotImplementedError("'high' (3xTF32) is not ported yet")
     if name not in _NAMED:
         raise ValueError(
             f"unknown precision {p!r}; expected one of {sorted(_NAMED)}"
@@ -106,6 +125,51 @@ def matmul_precision_scope(p: str) -> Iterator[None]:
         yield
     finally:
         set_matmul_precision(old)
+
+
+def _split_tf32(a):
+    """``a`` (float32) as ``(hi, lo)`` with ``hi + lo == a`` exactly: ``hi``
+    is ``a`` rounded to nearest at TF32's 10 explicit mantissa bits, so a
+    TF32 product reads it without loss, and ``lo`` the remainder (at most
+    12 significant bits). A value so large that its head would round to
+    infinity keeps itself as the head. The split has no meaning for a
+    non-finite value (``inf - inf``): under ``'high'`` an infinite or NaN
+    sample gives NaN, where ``'highest'`` may give an infinity, in exactly
+    the outputs that the sample enters."""
+    bits = a.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = torch.where(torch.isfinite(hi), hi, a)
+    return hi, a - hi
+
+
+def _bilinear(fn, a, b):
+    """``fn(a, b)`` for a bilinear ``fn`` at the current precision: one call
+    under ``'highest'`` and ``'default'`` (the backends' flags decide how it
+    is computed on the card), three under ``'high'``. The name is read once,
+    so a change made by another thread cannot mix the two within a call."""
+    if _matmul_precision != "high" or a.dtype is not torch.float32:
+        return fn(a, b)
+    a_hi, a_lo = _split_tf32(a)
+    b_hi, b_lo = _split_tf32(b)
+    # small terms first, so their sum is not rounded away in the large one
+    return (fn(a_hi, b_lo) + fn(a_lo, b_hi)) + fn(a_hi, b_hi)
+
+
+def matmul(a, b):
+    """``torch.matmul(a, b)`` at the current precision."""
+    return _bilinear(torch.matmul, a, b)
+
+
+def einsum(equation: str, a, b):
+    """``torch.einsum(equation, a, b)`` at the current precision."""
+    return _bilinear(lambda p, q: torch.einsum(equation, p, q), a, b)
+
+
+def conv1d(x, w, padding: int = 0, groups: int = 1):
+    """``F.conv1d(x, w, padding=padding, groups=groups)`` at the current
+    precision."""
+    return _bilinear(
+        lambda p, q: F.conv1d(p, q, padding=padding, groups=groups), x, w)
 
 
 _apply(_matmul_precision)

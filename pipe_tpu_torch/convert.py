@@ -15,6 +15,14 @@ continued by the port, and back.
 The one change of representation: a 0-d integer leaf (a stream counter
 such as the resampler's phase offset ``off`` or the OLS ring head ``pos``)
 is kept by the port on the host as a Python ``int``.
+
+A sharded chain's state crosses as GLOBAL host arrays: the JAX chain's
+``carries`` and ``params()`` after ``np.asarray`` on each leaf. Each rank of
+the port keeps its block of them by the stage's ``carry_spec`` /
+``param_spec`` (:func:`chain_carries_from_numpy`,
+:func:`chain_params_from_numpy`) and assembles them again
+(:func:`chain_carries_to_numpy`), so a stream begun in one package's
+``ShardedChain`` continues in the other's.
 """
 
 from __future__ import annotations
@@ -52,3 +60,33 @@ def tree_to_numpy(tree: Any) -> Any:
         return np.asarray(x)
 
     return tree_map(leaf, tree)
+
+
+def chain_carries_from_numpy(chain, carries) -> None:
+    """Continue the port's ``ShardedChain`` from a JAX chain's stream state:
+    ``carries`` is ``jax.tree.map(np.asarray, jax_chain.carries)``, global
+    arrays stage by stage, of which each rank keeps its block. Both chains
+    are built from the same stages on meshes with the same channel axis."""
+    chain.load_global_carries(carries)
+
+
+def chain_carries_to_numpy(chain):
+    """The port's stream state as the global arrays a JAX chain's ``carries``
+    hold (a collective: every rank of the mesh calls it)."""
+    return chain.global_carries()
+
+
+def chain_params_from_numpy(chain, params) -> None:
+    """Give every stage of the port's chain the parameters of a JAX chain:
+    ``params`` is ``jax.tree.map(np.asarray, jax_chain.params())``. They are
+    global arrays, which is what ``stage.params`` holds in the port too, so
+    this is a live retune of every leaf."""
+    if len(params) != len(chain.stages):
+        raise ValueError(
+            f"{len(params)} parameter trees for {len(chain.stages)} stages")
+    for st, p in zip(chain.stages, params):
+        if set(p) != set(st.params):
+            raise ValueError(
+                f"{type(st).__name__}: parameters {sorted(p)} where the stage "
+                f"has {sorted(st.params)}")
+        st.params = {k: np.asarray(v, np.float32) for k, v in p.items()}

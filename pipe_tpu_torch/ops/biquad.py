@@ -79,8 +79,11 @@ def _iir_tiles_ref(v, s, TlT, ab, Q: int):
     every carry are (C, 2) = (y[-1], y[-2]) of a tile."""
     C, B = v.shape
     T = B // Q
-    # 1. zero-state products of all tiles at once
-    z = (v.reshape(C * T, Q) @ TlT).reshape(C, T, Q)
+    # 1. zero-state products of all tiles at once, in float64 and rounded
+    # once: a float32 product on the card follows the precision knob of
+    # pipe_tpu_torch.config (TF32 under 'default' and 'high'), and the
+    # recurrence must not
+    z = (v.reshape(C * T, Q).double() @ TlT.double()).float().reshape(C, T, Q)
     # 2. the carries, tile by tile: a tile's last two outputs
     carries, carry = [], s
     for t in range(T):

@@ -9,8 +9,8 @@ state and output layout. The k-th channel is
     u_p[m] = sum_r x[rK + p] * g_p[m - r],   g_p[s] = h[sK - p]
     y[k, m] = DFT_K over p of u_p[m]
 
-so the bank is K branch FIRs (one grouped ``conv1d``, IEEE FP32 on the
-card under :mod:`pipe_tpu_torch.config`) followed by an rfft across the
+so the bank is K branch FIRs (one grouped ``conv1d`` at the precision of
+:mod:`pipe_tpu_torch.config`) followed by an rfft across the
 branches, which gives the K/2+1 unique bins of a real input.
 
 The Processor emits ``C * 2 * (K//2+1)`` output channels at rate ``sr/K``,
@@ -24,8 +24,8 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from pipe_tpu_torch import config
 from pipe_tpu_torch.components import Processor, param_tensor
 from pipe_tpu_torch.ops.prims import dynamic_slice
 from pipe_tpu_torch.signal import Signal, SignalProperties, zero_past
@@ -75,8 +75,8 @@ def channelize_block(hist, x, gp, num_channels: int):
     frames = ctx.reshape(C, S - 1 + M, K)
     # u_p[m] = sum_s frames[c, (S-1) + m - s, p] * gp[p, s]: one grouped
     # conv over the frame axis
-    u = F.conv1d(frames.transpose(1, 2), torch.flip(gp, (-1,))[:, None, :],
-                 groups=K)  # (C, K, M)
+    u = config.conv1d(frames.transpose(1, 2),
+                      torch.flip(gp, (-1,))[:, None, :], groups=K)  # (C, K, M)
     Y = torch.fft.rfft(u.transpose(1, 2), dim=-1).transpose(1, 2)
     return Y.real, Y.imag  # (C, K//2+1, M)
 

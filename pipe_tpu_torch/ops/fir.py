@@ -8,16 +8,16 @@ into ``S = 128``-sample frames treated as channels, and the FIR becomes one
 the taps. Short or per-channel filters use a depthwise ``conv1d``.
 
 The Toeplitz kernel is rebuilt from the live tap tensor every block, so a
-``set_taps`` mutation needs no rebuild hook. Convolutions run in IEEE FP32
-on the card (:mod:`pipe_tpu_torch.config`).
+``set_taps`` mutation needs no rebuild hook. Convolutions run at the
+precision of :mod:`pipe_tpu_torch.config` (IEEE FP32 unless it is changed).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from pipe_tpu_torch import config
 from pipe_tpu_torch.components import Processor, param_tensor
 from pipe_tpu_torch.signal import Signal, zero_past
 
@@ -34,9 +34,9 @@ def _conv_valid(buf, taps_rev):
     shared or (C, T) per-channel, already reversed so the correlation
     computes the causal convolution ``y[n] = sum_k h[k] x[n-k]``."""
     if taps_rev.ndim == 1:
-        return F.conv1d(buf[:, None, :], taps_rev[None, None, :])[:, 0, :]
+        return config.conv1d(buf[:, None, :], taps_rev[None, None, :])[:, 0, :]
     C = buf.shape[0]
-    return F.conv1d(buf[None], taps_rev[:, None, :], groups=C)[0]
+    return config.conv1d(buf[None], taps_rev[:, None, :], groups=C)[0]
 
 
 def _toeplitz_kernel(taps, S: int, n_blk: int):
@@ -70,7 +70,7 @@ def fir_apply(tail, x, taps):
     xp[:, pad - (T - 1): pad] = tail
     xp[:, pad: pad + B] = x
     lhs = xp.reshape(C, n_blk - 1 + Bp // S, S).transpose(1, 2)  # (C, S, W')
-    out = F.conv1d(lhs, kern)  # (C, S, W)
+    out = config.conv1d(lhs, kern)  # (C, S, W)
     y = out.transpose(1, 2).reshape(C, Bp)
     return y[:, :B] if Bp != B else y
 

@@ -25,8 +25,8 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from pipe_tpu_torch import config
 from pipe_tpu_torch.components import Processor, param_tensor
 from pipe_tpu_torch.signal import Signal, SignalProperties
 from pipe_tpu_torch.ops.biquad import (
@@ -55,8 +55,8 @@ def combine_bank(taps, hp):
     """Combined polyphase bank ``hc[p] = conv(hp[p], taps)``: ``taps``
     ``(T,)``, ``hp`` ``(L, K)`` -> ``(L, K + T - 1)``."""
     T = taps.shape[-1]
-    out = F.conv1d(hp[:, None, :], torch.flip(taps, (0,))[None, None, :],
-                   padding=T - 1)
+    out = config.conv1d(hp[:, None, :],
+                        torch.flip(taps, (0,))[None, None, :], padding=T - 1)
     return out[:, 0, :]
 
 
@@ -353,10 +353,10 @@ def _convolve_full(a, b):
     or both (C, T) row by row."""
     Tb = b.shape[-1]
     if a.ndim == 1:
-        return F.conv1d(a[None, None], torch.flip(b, (-1,))[None, None],
-                        padding=Tb - 1)[0, 0]
-    return F.conv1d(a[None], torch.flip(b, (-1,))[:, None, :],
-                    padding=Tb - 1, groups=a.shape[0])[0]
+        return config.conv1d(a[None, None], torch.flip(b, (-1,))[None, None],
+                             padding=Tb - 1)[0, 0]
+    return config.conv1d(a[None], torch.flip(b, (-1,))[:, None, :],
+                         padding=Tb - 1, groups=a.shape[0])[0]
 
 
 def cascade_taps(parts):

@@ -4,16 +4,15 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
+from pipe_tpu_torch import config
 from pipe_tpu_torch.components import Processor, param_tensor
 from pipe_tpu_torch.signal import Signal, SignalProperties
 
 
 def channel_mix_block(x, m):
-    """``(C_out, C_in) @ (C_in, B) -> (C_out, B)``, a plain product (FP32
-    pinned by :mod:`pipe_tpu_torch.config`)."""
-    return torch.matmul(m, x)
+    """``(C_out, C_in) @ (C_in, B) -> (C_out, B)``, a product at the precision
+    of :mod:`pipe_tpu_torch.config`."""
+    return config.matmul(m, x)
 
 
 class ChannelMix:

@@ -13,7 +13,10 @@ The FDL ring and the partition spectra are stored as float32 re/im planes
 JAX package's layout, so state and params cross packages. The planar
 split was the TPU's workaround for complex arithmetic; here the FFTs run
 on complex64 (cuFFT on the card, which has no TF32) and the MAC is an
-elementwise complex product summed over the partitions, IEEE FP32.
+elementwise complex product summed over the partitions, IEEE FP32: no
+matrix product, so nothing here consults the precision knob of
+:mod:`pipe_tpu_torch.config` (the JAX package's MAC is an einsum that
+does).
 
 The ring head ``pos`` is a host int (a stream counter, :mod:`convert`),
 so the ring write and the roll of the reversed spectra index with host

@@ -21,8 +21,8 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from pipe_tpu_torch import config
 from pipe_tpu_torch.components import Processor, param_tensor
 from pipe_tpu_torch.signal import Signal, SignalProperties, zero_past
 
@@ -87,7 +87,7 @@ def resample_apply(hist, x, hp, up: int, down: int):
         xp[:, pad - (K - 1): pad] = hist
     xp[:, pad:] = x
     lhs = xp.reshape(C, n_blk - 1 + B // M, M).transpose(1, 2)  # (C, M, W')
-    out = F.conv1d(lhs, rhs)  # (C, L, B // M)
+    out = config.conv1d(lhs, rhs)  # (C, L, B // M)
     return out.transpose(1, 2).reshape(C, B * L // M)
 
 
@@ -110,7 +110,7 @@ def resample_gather(hist, off: int, f: int, xm, hp, up: int, down: int,
     gidx = ((K - 1 + n0)[:, None] - ii[None, :]).clamp(0, ctx.shape[1] - 1)
     windows = ctx[:, gidx]  # (C, out_width, K)
     coefs = hp[p]  # (out_width, K)
-    y = torch.einsum("cbk,bk->cb", windows, coefs)
+    y = config.einsum("cbk,bk->cb", windows, coefs)
     new_hist = ctx[:, f: f + K - 1].contiguous()
     new_off = off + n_out * M - f * L
     return y, n_out, new_hist, new_off

@@ -553,3 +553,123 @@ def test_pinned_buffers_not_reused_in_flight(cuda, lookahead, batch_blocks):
         sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=out.append)),
         device=cuda, lookahead=lookahead, batch_blocks=batch_blocks)
     np.testing.assert_array_equal(np.concatenate(out, 1), x)
+
+
+PRECISIONS = ("highest", "high", "default")
+
+
+@pytest.mark.gpu
+def test_precision_knob_does_not_move_the_biquad_on_the_card(cuda):
+    """The recursive paths stay IEEE FP32 (or float64) under every precision
+    name: the plain tile version, the prefix path, the eager section, the
+    extended path and both kernels give the same bits."""
+    from pipe_tpu_torch.ops.biquad import (
+        biquad_section_block_extended,
+        split_f32_pair,
+    )
+
+    x, x_tail, s, coefs = _section_inputs(cuda, 8, 2560, seed=5)
+    sos = ops.design_peaking_eq(48000, 1000, 1.0, 3.0)
+    hi, lo = (torch.tensor(a, device=cuda) for a in split_f32_pair(sos))
+    paths = {
+        "tiles": lambda: _iir_apply(x, s, coefs[4], coefs[5], force="tiles"),
+        "assoc": lambda: _iir_apply(x, s, coefs[4], coefs[5], force="assoc"),
+        "kernel": lambda: _iir_apply(x, s, coefs[4], coefs[5]),
+        "section_ref": lambda: _biquad_section_ref(
+            {"x_tail": x_tail, "s": s}, x, 2560, coefs)[1],
+        "section_kernel": lambda: kernels.biquad_section(
+            x, 2560, x_tail, s, coefs)[0],
+        "extended": lambda: biquad_section_block_extended(
+            {"x_tail": x_tail, "s": s, "s_lo": torch.zeros_like(s)}, x, 2560,
+            hi, lo)[1],
+    }
+    for what, fn in paths.items():
+        outs = []
+        for name in PRECISIONS:
+            with config.matmul_precision_scope(name):
+                outs.append(fn())
+        assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0]), what
+    assert config.fp32_pinned()
+    # while a plain float32 product does follow the knob
+    a = torch.randn(256, 256, device=cuda)
+    with config.matmul_precision_scope("default"):
+        tf32 = a @ a
+    assert not torch.equal(tf32, a @ a)
+
+
+@pytest.mark.gpu
+def test_high_precision_clears_100_db_on_the_slice(cuda):
+    """FIR(255) -> resampler -> EQ -> 64->2 mix at the slice's width: the
+    three TF32 products of 'high' stay above 100 dB against float64, and one
+    TF32 product ('default') does not."""
+    import scipy.signal
+
+    C, block, n_blocks = 64, 9408, 6
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((C, n_blocks * block)).astype(np.float32)
+    h = ops.design_lowpass(255, 4000, 44100)
+    sos = ops.design_peaking_eq(48000, 1000, 1.0, 3.0)
+
+    def f32(a):
+        return np.asarray(a, np.float32).astype(np.float64)
+
+    y = scipy.signal.lfilter(f32(h), [1.0], x.astype(np.float64), axis=1)
+    y = scipy.signal.upfirdn(f32(ops.polyphase_design(160, 147, 32)).T.reshape(-1),
+                             y, up=160, down=147, axis=1)[:, : x.shape[1] * 160 // 147]
+    y = scipy.signal.sosfilt(f32(sos)[None, :], y, axis=1)
+    oracle = f32(np.ones((2, C)) / C) @ y
+
+    def run():
+        return pipe_tpu_torch.process(
+            x, [ops.FIR(h).processor(), ops.Resampler(48000, 44100).processor(),
+                ops.Biquad(sos).processor(),
+                ops.ChannelMix(np.ones((2, C)) / C).processor()],
+            block_size=block, device=cuda)
+
+    db = {}
+    for name in PRECISIONS:
+        with config.matmul_precision_scope(name):
+            db[name] = snr_db(oracle, run())
+    assert db["highest"] >= 100 and db["high"] >= 100, db
+    assert db["default"] < db["high"], db
+
+
+@pytest.mark.gpu
+def test_sharded_biquad_stage_launches_the_tile_kernel(cuda):
+    """A 1x1 ShardedChain with a BiquadStage on the card launches
+    ``iir_tiles`` twice a chunk (the zero-state pass and the defect pass)
+    and agrees with the same chain over the plain tile version."""
+    from pipe_tpu_torch import parallel
+    from pipe_tpu_torch.parallel import chain as chain_mod
+
+    sos = ops.design_peaking_eq(48000, 1000, 1.0, 3.0)
+    x = np.random.default_rng(7).standard_normal((16, 3 * 4096)).astype(np.float32)
+    mesh = parallel.make_mesh(1, 1)
+    chain = parallel.ShardedChain(mesh, [parallel.BiquadStage(sos)], 16, 4096,
+                                  device=cuda)
+    kernels.reset_counts()
+    y = chain.process(x)
+    assert kernels.launch_counts() == {"iir_tiles": 6, "biquad_section": 0}
+
+    plain = parallel.ShardedChain(mesh, [parallel.BiquadStage(sos)], 16, 4096,
+                                  device=cuda)
+    real = chain_mod._iir_apply
+    chain_mod._iir_apply = lambda v, s, a1, a2: real(
+        v, s, a1, a2, force="tiles" if kernels.tile_gate(*v.shape) else None)
+    try:
+        kernels.reset_counts()
+        y_plain = plain.process(x)
+        assert kernels.launch_counts()["iir_tiles"] == 0
+    finally:
+        chain_mod._iir_apply = real
+    assert snr_db(y_plain, y) >= 110
+    import scipy.signal
+
+    ref = scipy.signal.sosfilt(sos[None, :], x.astype(np.float64), axis=1)
+    assert snr_db(ref, y) >= 100
+    # a chunk off the tile gate takes the prefix path: no launch, no error
+    small = parallel.ShardedChain(mesh, [parallel.BiquadStage(sos)], 16, 1000,
+                                  device=cuda)
+    kernels.reset_counts()
+    small.step(x[:, :1000])
+    assert kernels.launch_counts()["iir_tiles"] == 0

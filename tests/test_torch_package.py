@@ -66,8 +66,10 @@ def test_fp32_pinned_for_cublas_and_cudnn():
     with config.matmul_precision_scope("default"):
         assert not config.fp32_pinned()
     assert config.fp32_pinned()
-    with pytest.raises(NotImplementedError):
-        config.set_matmul_precision("high")
+    with config.matmul_precision_scope("high"):  # 3xTF32: the flags allow
+        assert config.matmul_precision() == "high"  # TF32, the helpers split
+        assert not config.fp32_pinned()
+    assert config.fp32_pinned()
     with pytest.raises(ValueError):
         config.set_matmul_precision("mixed")
 
