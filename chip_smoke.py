@@ -111,7 +111,31 @@ the card (``cuda:0``), in phases, each printing one line:
     mesh; the gathered output >= 100 dB against the 1x1 chain's for the same
     input and identical on all ranks; the carries after the last chunk
     equal on the ranks of one channel row; samples/s printed (on one card
-    this measures the transport).
+    this measures the transport). Then, in the same ranks and on both
+    meshes: phase 17's chain (BASELINE config 4) at chunks of 4*8192 frames
+    (a local block of (16, 8192) on 1x4, (8, 16384) on 2x2): output >= 100 dB
+    against a 1x1 chain at chunks of 8192, ``iir_tiles`` exactly 2 a chunk
+    and rank, exactly 2 ``all_to_all`` a chunk and rank for the OLS stage
+    (from ``ShardedChain.last_comm`` and ``Mesh.stats``), the biquad's
+    carries equal inside a channel row, and the 1x4 mesh's bin-sharded
+    delay line, gathered, >= 100 dB against the 1x1 chain's; and phase 18's
+    two chains, each >= 100 dB against the port's streaming ops on the CPU,
+    with the delay in its wave-DAG regime (its shifts a chunk printed);
+17. BASELINE config 4 at full width through the sharded chain:
+    ``ShardedChain([OLSStage(65,536-tap IR), BiquadStage(peaking EQ)])`` on a
+    1x1 mesh, 16 channels, phase 10's feed (zero-padded to 54 chunks of
+    8192): the partitioned regime (``P > n_local``, K = 8 partitions, the
+    frequency-domain delay line), >= 100 dB against phase 10's output and
+    >= 90 dB against its float64 oracle; ``iir_tiles`` launched exactly 2 a
+    chunk (one section, two passes), ``biquad_section`` never; no collective
+    on one rank; samples/s and a profile of 10 chunks printed;
+18. the rest of the sharded stages on a 1x1 mesh on the card, against the
+    port's streaming ops on the CPU at >= 100 dB: ``CompressorStage ->
+    DelayStage(20000, feedback 0.5) -> SpectralGateStage(1024, 256)`` on 8
+    channels at chunks of 32768 (on one rank the delay is in its ladder
+    regime, on four ranks in the wave-DAG), and an FM signal through
+    ``IQMixStage -> FIRStage(127) -> FMDiscriminatorStage ->
+    ChannelizerStage(16)`` on 2 channels at chunks of 8192.
 
 ``python3 chip_smoke.py --four-ranks`` runs phase 16 alone (after phases 1,
 2 and the build), for a machine with four cards, where it takes NCCL.
@@ -836,6 +860,7 @@ def check_config4(port, dev, x) -> dict:
         require(not prof["float64_kernels"],
                 f"float64 kernels in config 4's profile: {prof['float64_kernels']}")
     return {"blocks": blocks, "launches": launches, "wall": wall, "y": y,
+            "oracle": oracle,
             "rate": x.size / wall, "cpu_db": cpu_db, "f64_db": f64_db,
             "cpu_wall": t_cpu, "ols_ms": ols_ms, "kernel_ms": kernel_ms,
             "kernel_db": kernel_db, "plain_ms": plain_ms,
@@ -1030,11 +1055,19 @@ CHUNKS16 = 4
 MESHES16 = ((1, 4), (2, 2))
 SEED16 = 16
 # the local blocks that the sharded chain's BiquadStage gives ``iir_tiles``
-# beyond KERNEL_SHAPES: phase 15's chunk, and phase 16's 2x2 mesh and 1x1
-# chain (its 1x4 mesh gives the slice's shape)
+# beyond KERNEL_SHAPES: phase 15's chunk, phase 16's 2x2 mesh and 1x1
+# chain (its 1x4 mesh gives the slice's shape), and the sharded
+# chain of config 4 on a 2x2 mesh (its 1x1 and 1x4 blocks are (C4, B4))
 SHARDED_SHAPES = ((CHANNELS, CHUNK15 * 160 // 147),
                   (CHANNELS // 2, CHUNK16 * 160 // 147 // 2),
-                  (CHANNELS, CHUNK16 * 160 // 147))
+                  (CHANNELS, CHUNK16 * 160 // 147),
+                  (C4 // 2, 2 * B4))
+CHUNK4S = 4 * B4  # config 4 on four ranks: 32768 frames, 8192 a rank on 1x4
+# phase 18's chains: (channels, chunk, chunks)
+EFFECTS18 = (8, 32768, 4)
+RECEIVER18 = (2, 8192, 4)
+DELAY18 = 20000  # <= a 1x1 chunk: ladder; between n_local and the chunk on
+#                  1x4 and 2x2: wave-DAG
 
 
 def check_knob_on_plain_biquad(dev) -> int:
@@ -1272,6 +1305,198 @@ def check_sharded_one_rank(port, dev) -> dict:
             "comm": chain.last_comm, "profile": prof}
 
 
+def input4():
+    """Phase 10's feed: 16 channels x 10 s."""
+    return np.random.default_rng(4).standard_normal((C4, N4)).astype(np.float32)
+
+
+def pad_to(x, chunk: int):
+    """``x`` with zeros appended up to a whole number of chunks."""
+    n = -(-x.shape[1] // chunk) * chunk
+    return np.concatenate(
+        [x, np.zeros((x.shape[0], n - x.shape[1]), x.dtype)], axis=1)
+
+
+def config4_stages(parallel):
+    """BASELINE config 4 as sharded stages: the 65,536-tap reverb and the
+    peaking EQ."""
+    return [parallel.OLSStage(config4_ir()), parallel.BiquadStage(peaking_sos())]
+
+
+def check_config4_sharded(port, dev, x, y10, oracle) -> dict:
+    """Phase 17 (see the module docstring): ``x`` is phase 10's feed, ``y10``
+    its output and ``oracle`` its float64 oracle."""
+    from pipe_tpu_torch import kernels, parallel
+    from pipe_tpu_torch.signal import snr_db
+
+    xp = pad_to(x, B4)
+    chunks = xp.shape[1] // B4
+    mesh = parallel.make_mesh(1, 1)
+    run_chain(parallel.ShardedChain(mesh, config4_stages(parallel), C4, B4),
+              xp[:, : 2 * B4], B4)  # warm-up
+    chain = parallel.ShardedChain(mesh, config4_stages(parallel), C4, B4)
+    ols = chain.stages[0]
+    require(ols._partitioned and ols._K == 8 and chain.device == dev,
+            f"the OLS stage is partitioned into 8 on the card (K = {ols._K})")
+    require(tuple(chain.carries[0]["zfdl"].shape) == (8, 2, C4, B4 + 1),
+            f"the delay line's shape {tuple(chain.carries[0]['zfdl'].shape)}")
+    kernels.reset_counts()
+    y, wall = run_chain(chain, xp, B4)
+    launches = kernels.launch_counts()
+    y = y[:, : x.shape[1]]
+    require(y.shape == x.shape and np.isfinite(y).all(),
+            f"sharded config 4 output {y.shape}")
+    require(launches["iir_tiles"] == 2 * chunks,
+            f"iir_tiles launched {launches['iir_tiles']} times for {chunks} "
+            f"chunks of one section, expected {2 * chunks}")
+    require(launches["biquad_section"] == 0,
+            "the sharded stage launched the one-section kernel")
+    require(chain.last_comm == [{}, {}],
+            f"collectives on a 1x1 mesh: {chain.last_comm}")
+    db10 = float(snr_db(y10, y))
+    require(db10 >= 100, f"sharded config 4 vs phase 10's run {db10:.1f} dB")
+    f64_db = float(snr_db(oracle, y))
+    require(f64_db >= 90, f"sharded config 4 vs float64 {f64_db:.1f} dB")
+    prof = device_profile(lambda: run_chain(chain, xp[:, : 10 * B4], B4), 10)
+    return {"chunks": chunks, "launches": launches["iir_tiles"], "wall": wall,
+            "rate": x.size / wall, "db10": db10, "f64_db": f64_db,
+            "profile": prof, "parts_ms": step_parts_ms(chain, xp, B4, 20)}
+
+
+def step_parts_ms(chain, x, chunk: int, n: int) -> dict:
+    """Where a chunk's wall goes: ms a chunk, over ``n`` chunks, of the
+    parts of ``ShardedChain.step`` and of ``gather``, each closed by a
+    ``synchronize`` (so the sum exceeds an unbroken step's wall, where the
+    host runs ahead of the card)."""
+    import torch
+
+    from pipe_tpu_torch.parallel import mesh_scope
+
+    parts = {"input": 0.0, "params": 0.0}
+    parts.update({f"{i}:{type(st).__name__}": 0.0
+                  for i, st in enumerate(chain.stages)})
+    parts["gather"] = 0.0
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[key] += 1e3 * (time.perf_counter() - t0) / n
+        return out
+
+    for i in range(n):
+        xc = x[:, i * chunk:(i + 1) * chunk]
+        local = timed("input", lambda: chain._local_input(xc))
+        params = timed("params", chain.params)
+        carries = []
+        with mesh_scope(chain.mesh):
+            for j, (st, c, p) in enumerate(zip(chain.stages, chain.carries, params)):
+                c2, local = timed(f"{j}:{type(st).__name__}",
+                                  lambda: st.apply(c, p, local))
+                carries.append(c2)
+        chain.carries = tuple(carries)
+        timed("gather", lambda: chain.gather(local))
+    return parts
+
+
+def effects18():
+    """Phase 18's first chain: ``(stages of parallel, processors of ops,
+    input)``."""
+    C, chunk, chunks = EFFECTS18
+    x = (0.5 * np.random.default_rng(18).standard_normal(
+        (C, chunks * chunk))).astype(np.float32)
+
+    def stages(parallel):
+        return [parallel.CompressorStage(-15.0, 4.0, attack_ms=5.0,
+                                         release_ms=120.0, sample_rate=SR_IN),
+                parallel.DelayStage(DELAY18, feedback=0.5, wet=0.7, dry=0.5),
+                parallel.SpectralGateStage(1024, 256, threshold=8.0,
+                                           reduction_db=-40.0)]
+
+    def processors(ops):
+        return [ops.Compressor(-15.0, 4.0, attack_ms=5.0,
+                               release_ms=120.0).processor(),
+                ops.Delay(DELAY18, feedback=0.5, wet=0.7, dry=0.5).processor(),
+                ops.SpectralGate(1024, 256, threshold=8.0,
+                                 reduction_db=-40.0).processor()]
+
+    return stages, processors, x
+
+
+def receiver18():
+    """Phase 18's second chain: an FM receiver (IQ mix, lowpass, quadrature
+    discriminator) and a 16-bin channelizer over the demodulated message.
+    The channelizer comes last: a discriminator fed a channelizer's real
+    rails reads ``atan2(+-0, +-0)`` on the rails that are zero by
+    construction, and half a cycle more wherever a rail changes sign, so
+    its output there depends on the sign of a rounding error."""
+    from pipe_tpu_torch import ops
+
+    C, chunk, chunks = RECEIVER18
+    t = np.arange(chunks * chunk) / SR_IN
+    msg = np.sin(2 * np.pi * 40.0 * t) + 0.5 * np.sin(2 * np.pi * 700.0 * t)
+    fm = np.cos(2 * np.pi * 8000.0 * t
+                + 2 * np.pi * 1500.0 * np.cumsum(msg) / SR_IN)
+    x = (np.linspace(0.5, 1.0, C)[:, None] * fm).astype(np.float32)
+    lp = ops.design_lowpass(127, 3000.0, SR_IN)
+
+    def stages(parallel):
+        return [parallel.IQMixStage(8000.0, sample_rate=SR_IN),
+                parallel.FIRStage(lp), parallel.FMDiscriminatorStage(),
+                parallel.ChannelizerStage(16)]
+
+    def processors(ops):
+        return ops.fm_demod_factory(8000.0, lp) + [ops.Channelizer(16).processor()]
+
+    return stages, processors, x
+
+
+CHAINS18 = {"effects": (effects18, EFFECTS18), "receiver": (receiver18, RECEIVER18)}
+
+
+def streamed18(port, name):
+    """Phase 18's chain ``name`` through the port's streaming ops on the
+    CPU."""
+    import torch
+
+    from pipe_tpu_torch import ops
+
+    make, _ = CHAINS18[name]
+    _, processors, x = make()
+    y, _ = timed_run(port, x, lambda: processors(ops), 4096, torch.device("cpu"))
+    return y
+
+
+def check_kit_sharded(port, dev) -> dict:
+    """Phase 18 (see the module docstring)."""
+    from pipe_tpu_torch import kernels, parallel
+    from pipe_tpu_torch.signal import snr_db
+
+    res = {}
+    mesh = parallel.make_mesh(1, 1)
+    for name, (make, (C, chunk, chunks)) in CHAINS18.items():
+        stages, _, x = make()
+        run_chain(parallel.ShardedChain(mesh, stages(parallel), C, chunk),
+                  x[:, :chunk], chunk)  # warm-up
+        chain = parallel.ShardedChain(mesh, stages(parallel), C, chunk)
+        require(chain.device == dev, f"{name}: the chain's device is the card")
+        kernels.reset_counts()
+        y, wall = run_chain(chain, x, chunk)
+        require(sum(kernels.launch_counts().values()) == 0,
+                f"{name}: no biquad in the chain, yet a kernel was launched")
+        y_cpu = streamed18(port, name)
+        require(y.shape == y_cpu.shape and np.isfinite(y).all(),
+                f"{name}: output {y.shape}, streamed {y_cpu.shape}")
+        db = float(snr_db(y_cpu, y))
+        require(db >= 100, f"{name}: sharded 1x1 vs the streaming ops on the "
+                           f"CPU {db:.1f} dB")
+        res[name] = {"db": db, "wall": wall, "rate": x.size / wall,
+                     "out": y.shape}
+        if name == "effects":
+            require(chain.stages[1]._ladder, "the 1x1 delay is in its ladder regime")
+    return res
+
+
 def input16():
     return np.random.default_rng(SEED16).standard_normal(
         (CHANNELS, CHUNKS16 * CHUNK16)).astype(np.float32)
@@ -1316,8 +1541,145 @@ def rank_main(rank: int, world: int, port_no: int, transport: str, out_dir: str)
         saved[f"{key}/y"] = y
         for i, leaf in enumerate(tree_flatten(tree_to_numpy(chain.carries))[0]):
             saved[f"{key}/carry{i}"] = leaf
+        rank_extra(rank, mesh, key, saved)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **saved)
     parallel.shutdown()
+
+
+def rank_extra(rank: int, mesh, key: str, saved: dict) -> None:
+    """One rank's share of phase 16's second half on ``mesh``: config 4's
+    chain and phase 18's two chains. Rank 0 keeps the gathered outputs, every
+    rank their digests, launch counts, collectives and carries."""
+    import hashlib
+
+    from pipe_tpu_torch import kernels, parallel
+    from pipe_tpu_torch.convert import tree_to_numpy
+
+    def keep(name, y):
+        saved[f"{key}/{name}/sha"] = hashlib.sha1(
+            np.ascontiguousarray(y).tobytes()).hexdigest()
+        if rank == 0:
+            saved[f"{key}/{name}/y"] = y
+
+    x = pad_to(input4(), CHUNK4S)
+    run_chain(parallel.ShardedChain(mesh, config4_stages(parallel), C4, CHUNK4S),
+              x[:, :CHUNK4S], CHUNK4S)  # warm-up
+    chain = parallel.ShardedChain(mesh, config4_stages(parallel), C4, CHUNK4S)
+    mesh.reset_stats()
+    kernels.reset_counts()
+    y, wall = run_chain(chain, x, CHUNK4S)
+    keep("c4", y)
+    saved[f"{key}/c4/launches"] = kernels.launch_counts()["iir_tiles"]
+    saved[f"{key}/c4/sections"] = kernels.launch_counts()["biquad_section"]
+    saved[f"{key}/c4/wall"] = wall
+    saved[f"{key}/c4/a2a_last"] = list(chain.last_comm[0].get("all_to_all", [0, 0]))
+    saved[f"{key}/c4/ols_comm"] = sorted(chain.last_comm[0])
+    saved[f"{key}/c4/a2a_run"] = list(mesh.stats.get("all_to_all", [0, 0]))
+    saved[f"{key}/c4/comm_seconds"] = sum(mesh.seconds.values())
+    local = tree_to_numpy(chain.carries)
+    saved[f"{key}/c4/zfdl_local_shape"] = local[0]["zfdl"].shape
+    for name in ("x_tail", "s"):  # replicated over the time axis
+        saved[f"{key}/c4/{name}"] = local[1][name]
+    glob = chain.global_carries()  # a collective: every rank calls it
+    if rank == 0:
+        saved[f"{key}/c4/zfdl"] = glob[0]["zfdl"]
+    parts = step_parts_ms(chain, x, CHUNK4S, 6)  # collectives: every rank
+    saved[f"{key}/c4/parts"] = [f"{k} {v:.3f}" for k, v in parts.items()]
+
+    for name, (make, (C, chunk, chunks)) in CHAINS18.items():
+        stages, _, x18 = make()
+        run_chain(parallel.ShardedChain(mesh, stages(parallel), C, chunk),
+                  x18[:, :chunk], chunk)  # warm-up
+        chain = parallel.ShardedChain(mesh, stages(parallel), C, chunk)
+        mesh.reset_stats()
+        y, wall = run_chain(chain, x18, chunk)
+        keep(name, y)
+        saved[f"{key}/{name}/wall"] = wall
+        saved[f"{key}/{name}/comm_calls"] = sum(v[0] for v in mesh.stats.values())
+        if name == "effects":
+            require(chain.stages[1]._wave, f"mesh {key}: the delay is a wave-DAG")
+            saved[f"{key}/effects/delay_shifts"] = chain.last_comm[1].get(
+                "send_recv", [0, 0])[0]
+
+
+def check_ranks_extra(ranks, key, mesh_shape, x4, y_ref4, zfdl_ref, streamed):
+    """Phase 16's second half on one mesh, from what the ranks saved."""
+    from pipe_tpu_torch.signal import snr_db
+
+    c, t = mesh_shape
+    chunks = x4.shape[1] // CHUNK4S
+    out = {}
+
+    def gathered(name):
+        shas = {str(r[f"{key}/{name}/sha"]) for r in ranks}
+        require(len(shas) == 1, f"mesh {key}, {name}: the ranks gathered "
+                                "different outputs")
+        return ranks[0][f"{key}/{name}/y"]
+
+    y = gathered("c4")
+    require(y.shape == y_ref4.shape and np.isfinite(y).all(),
+            f"mesh {key}: config 4 output {y.shape}")
+    db = float(snr_db(y_ref4, y))
+    require(db >= 100, f"mesh {key}: config 4 vs the 1x1 chain {db:.1f} dB")
+    launches = [int(r[f"{key}/c4/launches"]) for r in ranks]
+    require(launches == [2 * chunks] * len(ranks),
+            f"mesh {key}: config 4 iir_tiles launches per rank {launches}, "
+            f"expected {2 * chunks}")
+    require(all(int(r[f"{key}/c4/sections"]) == 0 for r in ranks),
+            f"mesh {key}: config 4 launched the one-section kernel")
+    n_local, c_local = CHUNK4S // t, C4 // c
+    bs = -(-(n_local + 1) // t)
+    a2a_bytes = t * 2 * c_local * bs * 4
+    K = 65536 // n_local
+    for i, r in enumerate(ranks):
+        require([int(v) for v in r[f"{key}/c4/a2a_last"]] == [2, 2 * a2a_bytes]
+                and [str(v) for v in r[f"{key}/c4/ols_comm"]] == ["all_to_all"],
+                f"mesh {key}, rank {i}: the OLS stage's collectives a chunk "
+                f"{r[f'{key}/c4/ols_comm']} {r[f'{key}/c4/a2a_last']}, expected "
+                f"2 all_to_all of {a2a_bytes} bytes")
+        require([int(v) for v in r[f"{key}/c4/a2a_run"]]
+                == [2 * chunks, 2 * chunks * a2a_bytes],
+                f"mesh {key}, rank {i}: all_to_all over the run "
+                f"{r[f'{key}/c4/a2a_run']}")
+        require(tuple(int(v) for v in r[f"{key}/c4/zfdl_local_shape"])
+                == (K, 2, c_local, bs),
+                f"mesh {key}, rank {i}: local delay line "
+                f"{r[f'{key}/c4/zfdl_local_shape']}")
+    rows = {}
+    for i, r in enumerate(ranks):
+        rows.setdefault(i // t, []).append(r)
+    for row in rows.values():
+        for other in row[1:]:
+            for name in ("x_tail", "s"):
+                require(np.array_equal(row[0][f"{key}/c4/{name}"],
+                                       other[f"{key}/c4/{name}"]),
+                        f"mesh {key}: config 4's {name} differs inside a row")
+    out["c4"] = {"db": db, "launches": launches, "a2a": [2, 2 * a2a_bytes],
+                 "wall": max(float(r[f"{key}/c4/wall"]) for r in ranks),
+                 "comm_seconds": [float(r[f"{key}/c4/comm_seconds"])
+                                  for r in ranks]}
+    out["c4"]["rate"] = C4 * N4 / out["c4"]["wall"]
+    out["c4"]["parts"] = [str(v) for v in ranks[0][f"{key}/c4/parts"]]
+    if n_local == B4:  # the reference's partition size: the same delay line
+        zfdl = ranks[0][f"{key}/c4/zfdl"][..., : B4 + 1]
+        zdb = float(snr_db(zfdl_ref, zfdl))
+        require(zfdl.shape == zfdl_ref.shape and zdb >= 100,
+                f"mesh {key}: the gathered delay line vs the 1x1 chain's "
+                f"{zdb:.1f} dB")
+        out["c4"]["zfdl_db"] = zdb
+    for name, want in streamed.items():
+        y = gathered(name)
+        require(y.shape == want.shape and np.isfinite(y).all(),
+                f"mesh {key}, {name}: output {y.shape}")
+        db = float(snr_db(want, y))
+        require(db >= 100, f"mesh {key}, {name} vs the streaming ops on the "
+                           f"CPU {db:.1f} dB")
+        out[name] = {"db": db,
+                     "wall": max(float(r[f"{key}/{name}/wall"]) for r in ranks),
+                     "comm_calls": int(ranks[0][f"{key}/{name}/comm_calls"])}
+    out["effects"]["delay_shifts"] = [int(r[f"{key}/effects/delay_shifts"])
+                                      for r in ranks]
+    return out
 
 
 def check_four_ranks(dev, count: int) -> dict:
@@ -1337,6 +1699,18 @@ def check_four_ranks(dev, count: int) -> dict:
                                     main_path_stages(parallel), CHANNELS,
                                     CHUNK16), x[:, :CHUNK16], CHUNK16)  # warm-up
     y_ref, ref_wall = run_chain(ref_chain, x, CHUNK16)
+    # config 4's reference: one rank at chunks of 8192, the partition size
+    # of the 1x4 mesh, so that its delay line is comparable with that mesh's
+    x4 = pad_to(input4(), CHUNK4S)
+    ref4 = parallel.ShardedChain(parallel.make_mesh(1, 1),
+                                 config4_stages(parallel), C4, B4)
+    run_chain(parallel.ShardedChain(parallel.make_mesh(1, 1),
+                                    config4_stages(parallel), C4, B4),
+              x4[:, : 2 * B4], B4)  # warm-up
+    y_ref4, ref4_wall = run_chain(ref4, x4, B4)
+    zfdl_ref = ref4.global_carries()[0]["zfdl"]
+    port = import_port()
+    streamed = {name: streamed18(port, name) for name in CHAINS18}
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port_no = sock.getsockname()[1]
@@ -1346,7 +1720,7 @@ def check_four_ranks(dev, count: int) -> dict:
             [sys.executable, str(HERE / "chip_smoke.py"), "--rank", str(r),
              str(world), str(port_no), transport, tmp]) for r in range(world)]
         try:
-            deadline = time.monotonic() + 300
+            deadline = time.monotonic() + 420
             for r, p in enumerate(procs):
                 rc = p.wait(max(1.0, deadline - time.monotonic()))
                 require(rc == 0, f"rank {r} exited with code {rc}")
@@ -1356,6 +1730,10 @@ def check_four_ranks(dev, count: int) -> dict:
                     p.kill()
                 p.wait()
         ranks = [dict(np.load(Path(tmp) / f"rank{r}.npz")) for r in range(world)]
+    res["ref4_rate"] = x4.size / ref4_wall
+    res["extra"] = {f"{c}x{t}": check_ranks_extra(
+        ranks, f"{c}x{t}", (c, t), x4, y_ref4, zfdl_ref, streamed)
+        for c, t in MESHES16}
     want = 2 * 2 * CHUNKS16
     for c, t in MESHES16:
         key = f"{c}x{t}"
@@ -1404,6 +1782,27 @@ def say_four_ranks(s16: dict, card: str) -> None:
                 for k, v in s16["meshes"].items())
         + f"; the 1x1 chain at the same chunk in one process "
           f"{s16['ref_rate']:.4g} samples/s; on {card}")
+    for k, v in s16["extra"].items():
+        c4 = v["c4"]
+        say(16, f"mesh {k}, config 4 ({C4} ch, chunks of {CHUNK4S}): vs the 1x1 "
+                f"chain at chunks of {B4} {c4['db']:.1f} dB"
+                + (f", gathered delay line {c4['zfdl_db']:.1f} dB"
+                   if "zfdl_db" in c4 else "")
+                + f", iir_tiles launches per rank {c4['launches']}, OLS stage "
+                  f"all_to_all a chunk and rank [calls, bytes] {c4['a2a']}, "
+                  f"{c4['wall']:.4f} s wall = {c4['rate']:.4g} samples/s (1x1 at "
+                  f"chunks of {B4}: {s16['ref4_rate']:.4g}), host seconds inside "
+                  "collectives per rank "
+                + "/".join(f"{t:.4f}" for t in c4["comm_seconds"])
+                + "; rank 0's ms a chunk by part of the step, each "
+                  "synchronized: " + ", ".join(c4["parts"])
+                + "; " + "; ".join(
+                    f"{n} vs the streaming ops on the CPU {v[n]['db']:.1f} dB, "
+                    f"{v[n]['wall']:.4f} s wall, rank 0 made "
+                    f"{v[n]['comm_calls']} collective calls"
+                    for n in CHAINS18)
+                + f"; the wave-DAG delay's shifts a chunk per rank "
+                  f"{v['effects']['delay_shifts']}; on {card}")
 
 
 def main(only_four_ranks: bool = False) -> None:
@@ -1549,7 +1948,7 @@ def main(only_four_ranks: bool = False) -> None:
     say(9, "dispatch: " + ", ".join(f"{k} {v:.1f}" for k, v in dres.items())
         + f"; on {card}")
 
-    x4 = np.random.default_rng(4).standard_normal((C4, N4)).astype(np.float32)
+    x4 = input4()
     c4 = check_config4(port, dev, x4)
     prof = c4["profile"]
     idle4 = 1.0 - prof["device_ms"] / 10 / (1e3 * c4["wall"] / c4["blocks"])
@@ -1623,6 +2022,28 @@ def main(only_four_ranks: bool = False) -> None:
     s16 = check_four_ranks(dev, count)
     say_four_ranks(s16, card)
 
+    s17 = check_config4_sharded(port, dev, x4, c4["y"], c4["oracle"])
+    p17 = s17["profile"]
+    say(17, f"config 4 through ShardedChain 1x1 (OLSStage partitioned K = 8 -> "
+            f"BiquadStage), {C4} ch, {s17['chunks']} chunks of {B4}: iir_tiles "
+            f"launches {s17['launches']} (2 a chunk), biquad_section 0, no "
+            f"collective, vs phase 10's run {s17['db10']:.1f} dB, vs float64 "
+            f"{s17['f64_db']:.1f} dB, {s17['wall']:.4f} s wall = "
+            f"{s17['rate']:.4g} samples/s (phase 10's run {c4['rate']:.4g}); "
+            f"profile of 10 chunks: device {p17['device_ms']:.3f} ms, "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in p17["ms"].items())
+            + f", {p17['launches_per_block']:.1f} launches/chunk, device idle "
+              f"{100 * (1 - p17['device_ms'] / 10 / (1e3 * s17['wall'] / s17['chunks'])):.1f} "
+              f"% of the unprofiled wall a chunk; ms a chunk by part of the "
+              f"step, each synchronized: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in s17["parts_ms"].items())
+            + f"; on {card}")
+
+    s18 = check_kit_sharded(port, dev)
+    say(18, "sharded stages 1x1 vs the streaming ops on the CPU: " + "; ".join(
+        f"{k} {v['out']}: {v['db']:.1f} dB, {v['wall']:.4f} s wall = "
+        f"{v['rate']:.4g} samples/s" for k, v in s18.items()) + f"; on {card}")
+
     main_shape = KERNEL_SHAPES[-1]
     section_paths = {"run (phase 7)": launches["biquad_section"],
                      "Pipe line A (phase 8)": pres["launches"]["pipe-exec-line0"],
@@ -1634,6 +2055,9 @@ def main(only_four_ranks: bool = False) -> None:
                    "ShardedChain 1x1 (phase 15)": s15["launches"]}
     tiles_paths.update({f"ShardedChain {k}, each of 4 ranks (phase 16)":
                         v["launches"][0] for k, v in s16["meshes"].items()})
+    tiles_paths.update({f"ShardedChain config 4 {k}, each of 4 ranks (phase 16)":
+                        v["c4"]["launches"][0] for k, v in s16["extra"].items()})
+    tiles_paths["ShardedChain config 4 1x1 (phase 17)"] = s17["launches"]
 
     def kernel_entry(name, by_path, results):
         r = results[main_shape]

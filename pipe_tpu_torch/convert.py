@@ -22,7 +22,12 @@ the port keeps its block of them by the stage's ``carry_spec`` /
 ``param_spec`` (:func:`chain_carries_from_numpy`,
 :func:`chain_params_from_numpy`) and assembles them again
 (:func:`chain_carries_to_numpy`), so a stream begun in one package's
-``ShardedChain`` continues in the other's.
+``ShardedChain`` continues in the other's. That holds for every stage's
+carries (``tail``, ``hist``, ``x_tail``/``s``/``s_lo``, the bin-sharded
+``zfdl``, ``env``/``env_lo``, the time-sharded ``ring``, ``prev``, and the
+oscillator's ``n``, an int32 scalar there and a host int on the rank) and
+parameters (``ir_f``, ``gains`` and the scalar tunables included): names,
+shapes and integer-ness are checked on the way in.
 """
 
 from __future__ import annotations

@@ -32,9 +32,8 @@ line-for-line counterpart of the JAX package's. What follows from it:
   global shapes only, so all ranks raise alike; groups carry a timeout, so
   a rank whose peer died raises instead of hanging.
 
-Ported so far: ``mesh``, ``meshctx``, ``distributed``, ``halo`` and of
-``chain`` the ``ShardedChain`` with the stages of the sharded main path and
-the EQ. The other stages raise ``NotImplementedError`` by name;
+Ported: ``mesh``, ``meshctx``, ``distributed``, ``halo`` and all of
+``chain``: the ``ShardedChain`` with the 22 stages of the JAX package.
 ``components`` (``sharded``), ``hostsync`` and the mesh ``Pipe`` are not
 ported, and ``Pipe(mesh=...)``/``run(mesh=...)`` go on refusing.
 """

@@ -36,14 +36,24 @@ What crosses the chain's boundary, on every rank alike:
   stream begun in either package continues in the other
   (:func:`pipe_tpu_torch.convert.chain_carries_from_numpy`).
 
-Stages so far (the sharded main path and the EQ): :class:`GainStage`,
+Stages (all 22 of the JAX package): :class:`GainStage`,
 :class:`FIRStage`, :class:`FIRCascadeStage`, :class:`ResampleStage`
 (requires ``N_local*L % M == 0`` so every rank emits an equal count at
-phase 0), :class:`FIRResampleStage`, :class:`BiquadStage` (float32 and
-``precision='extended'``), :class:`BiquadCascadeStage`, :class:`MixStage`
-(``all_reduce`` over the channel axis; must be last), :class:`FIRGainStage`,
-:class:`MixGainStage`. The other stage names of the JAX package raise
-``NotImplementedError``.
+phase 0), :class:`FIRResampleStage`, :class:`OLSStage` and
+:class:`OLSGainStage` (a P-sample halo, or for an IR longer than the local
+chunk the bin-sharded frequency-domain delay line with two ``all_to_all``
+per step), :class:`BiquadStage` (float32 and ``precision='extended'``),
+:class:`BiquadCascadeStage`, :class:`CompressorStage`,
+:class:`LimiterStage`, :class:`GateStage`, :class:`DelayStage` (pure tap,
+feedback-free ring, ladder, wave-DAG), :class:`ChannelizerStage`,
+:class:`IQMixStage`, :class:`EnvelopeDetectorStage`,
+:class:`FMDiscriminatorStage`, :class:`SpectralGainStage`,
+:class:`SpectralGateStage`, :class:`MixStage` (``all_reduce`` over the
+channel axis; must be last), :class:`FIRGainStage`, :class:`MixGainStage`.
+
+A carry that is a 0-d integer (the oscillator's sample index) is a host
+``int`` on every rank, as stream counters are everywhere in the port, and an
+``int32`` scalar among the global carries.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pipe_tpu_torch import config
 from pipe_tpu_torch.errors import ShapeConstraintError
@@ -63,7 +74,23 @@ from pipe_tpu_torch.ops.biquad import (
     _dd_mul,
     _iir_apply,
     _iir_scan_dd,
+    _two_prod,
+    _two_sum,
     split_f32_pair,
+)
+from pipe_tpu_torch.ops.channelizer import (
+    channelize_block,
+    design_prototype,
+    polyphase_branches,
+)
+from pipe_tpu_torch.ops.demod import _rationalize, osc_block
+from pipe_tpu_torch.ops.dynamics import (
+    _affine1_combine,
+    _attack_oma,
+    _decay_coef,
+    _max_decay_combine,
+    _pow_int,
+    compressor_gain,
 )
 from pipe_tpu_torch.ops.fir import fir_apply
 from pipe_tpu_torch.ops.fused import (
@@ -72,20 +99,27 @@ from pipe_tpu_torch.ops.fused import (
     scaled_matrix,
     scaled_taps,
 )
+from pipe_tpu_torch.ops.prims import dynamic_slice, prefix_scan
 from pipe_tpu_torch.ops.resample import (
     _reduce_ratio,
     polyphase_design,
     resample_apply,
 )
+from pipe_tpu_torch.ops.spectral import (
+    _ola_fold,
+    design_stft_window,
+    frame_hops,
+)
 from pipe_tpu_torch.parallel.distributed import ShardedChunk
 from pipe_tpu_torch.parallel.halo import (
+    broadcast_last,
     exclusive_prefix,
     halo_from_left,
     last_shard,
     psum,
 )
 from pipe_tpu_torch.parallel.mesh import CH_AXIS, TIME_AXIS, Mesh, P
-from pipe_tpu_torch.parallel.meshctx import mesh_scope
+from pipe_tpu_torch.parallel.meshctx import mesh_scope, require_mesh
 from pipe_tpu_torch.tree import tree_flatten, tree_unflatten
 
 
@@ -691,29 +725,891 @@ class BiquadCascadeStage(Stage):
         return {k: torch.stack(v) for k, v in new.items()}, x
 
 
-def _not_ported(name: str):
-    """A stage of the JAX package that the port does not have yet: its name
-    exists and raises, instead of being absent silently."""
+class OLSStage(Stage):
+    """Overlap-save FFT convolution, time-sharded, for ANY IR length.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"parallel.{name} is not ported to pipe_tpu_torch yet")
+    Two regimes, chosen at build:
 
-    return type(name, (Stage,), {"__init__": __init__, "__doc__": _not_ported.__doc__})
+    - **single-FFT** (``P <= n_local``): each rank convolves [P-sample halo,
+      local chunk] with one FFT sized to the next power of two >= P +
+      N_local and keeps the last N_local outputs.
+    - **distributed partitioned FDL** (``P > n_local``: the 64k-tap reverb
+      of BASELINE config 4): UPOLS with partition size ``B = n_local``, with
+      the frequency-domain delay line SHARDED over the time axis by
+      frequency bins. The classical 2B analysis window spectrum decomposes
+      linearly over zero-padded block FFTs: with ``A_j = rfft(x_j, 2B)`` and
+      the B-sample shift phase ``sigma_k = (-1)^k``, ``W_g = A_{g-1} +
+      sigma * A_g``, so the window halo folds into the partition spectra
+      once at build: ``G_0 = sigma*H_0``, ``G_m = sigma*H_m + H_{m-1}``,
+      ``G_K = H_{K-1}`` and ``y_g = last B of irfft(sum_{m=0}^{K} G_m
+      A_{g-m})``.
+
+      Per chunk step each rank FFTs only its OWN block (no neighbour halo),
+      one ``all_to_all`` transposes the T fresh block spectra to a
+      bins-over-ranks layout, every rank multiply-accumulates its bin slice
+      of the K+1-deep A-spectra delay line against its bin slice of G for
+      ALL T outputs, and a second ``all_to_all`` brings each output block's
+      spectrum home for the inverse FFT. The FDL carry and the partition
+      spectra are bin-sharded (carry memory and param bytes /T); per-step
+      collective traffic is two spectrum-sized transposes, independent of T
+      and K.
+
+    The carry and ``ir_f`` are float32 re/im planes, the JAX package's
+    layout, so they cross packages; the FFTs run on complex64. The delay
+    line's multiply-accumulate is four real einsums through
+    :func:`pipe_tpu_torch.config.einsum`, so the precision knob reaches it
+    as in the JAX package.
+    """
+
+    def __init__(self, ir):
+        self._ir = np.asarray(ir, np.float64)
+        if self._ir.ndim not in (1, 2):
+            raise ValueError("OLSStage ir must be (P,) or (C, P)")
+
+    def build(self, c_global, c_local, n_local):
+        Pn = self._ir.shape[-1]
+        if self._ir.ndim == 2 and self._ir.shape[0] != c_global:
+            c_user = self.user_channels(c_global)
+            if self._ir.shape[0] != c_user:
+                raise ValueError(
+                    f"per-channel IR for {self._ir.shape[0]} channels, "
+                    f"chain has {c_user}"
+                )
+            self._ir = np.concatenate(
+                [self._ir, np.zeros((c_global - c_user, Pn), np.float64)],
+                axis=0,
+            )
+        self._partitioned = Pn > n_local
+        if self._partitioned:
+            B = n_local
+            K = -(-Pn // B)
+            self._F = 2 * B
+            self._K = K
+            bins = B + 1
+            T = max(1, int(self.time_shards))
+            self._t = T
+            # bins padded to the transpose width (T equal slices)
+            self._bs = -(-bins // T)
+            self._bins_pad = self._bs * T
+            self.carry = {
+                # zfdl[i] = A-spectrum planes of global block (start-K+i)
+                # (oldest first), frequency bins sharded over the time axis
+                "zfdl": np.zeros(
+                    (K, 2, c_global, self._bins_pad), np.float32
+                ),
+            }
+            self.carry_spec = {"zfdl": P(None, None, CH_AXIS, TIME_AXIS)}
+            self.params = {"ir_f": self.transform_ir(self._ir)}
+            # reversed G planes, bin-sharded with the carry: shared
+            # (2, K+1, binsP); per-channel (C, 2, K+1, binsP)
+            self.param_spec = {
+                "ir_f": P(None, None, TIME_AXIS)
+                if self._ir.ndim == 1
+                else P(CH_AXIS, None, None, TIME_AXIS)
+            }
+        else:
+            F_ = 1 << int(np.ceil(np.log2(Pn + n_local)))
+            self._F = F_
+            self.carry = {"hist": np.zeros((c_global, Pn), np.float32)}
+            self.carry_spec = {"hist": P(CH_AXIS, None)}
+            self.params = {"ir_f": self.transform_ir(self._ir)}
+            # shared: (2, bins) replicated; per-channel: (C, 2, bins)
+            self.param_spec = {
+                "ir_f": P() if self._ir.ndim == 1 else P(CH_AXIS, None, None)
+            }
+        self.out_c_global, self.out_c_local, self.out_n_local = c_global, c_local, n_local
+
+    def transform_ir(self, ir) -> np.ndarray:
+        """Spectra planes for the built FFT layout, float64 on the host then
+        rounded to float32 (also used by live IR swaps: same length, same
+        partitioning)."""
+        ir = np.asarray(ir, np.float64)
+        if not getattr(self, "_partitioned", False):
+            spec = np.fft.rfft(ir, n=self._F, axis=-1)
+            return np.stack([spec.real, spec.imag], axis=-2).astype(np.float32)
+        B, K = self._F // 2, self._K
+        bins = B + 1
+        shared = ir.ndim == 1
+        irc = ir[None, :] if shared else ir
+        C = irc.shape[0]
+        padded = np.zeros((C, K * B), np.float64)
+        padded[:, : irc.shape[1]] = irc
+        parts = padded.reshape(C, K, B)
+        H = np.fft.rfft(parts, n=self._F, axis=-1)  # (C, K, bins)
+        # fold the window halo into the partitions (class docstring):
+        # G_m = sigma * H_m + H_{m-1}, sigma_k = (-1)^k
+        sigma = np.where(np.arange(bins) % 2 == 0, 1.0, -1.0)
+        G = np.zeros((C, K + 1, bins), np.complex128)
+        G[:, :K] += sigma * H
+        G[:, 1:] += H
+        Grev = G[:, ::-1]  # Grev[k] = G_{K-k}: the windowed-MAC order
+        planes = np.stack(
+            [Grev.real, Grev.imag], axis=1
+        ).astype(np.float32)  # (C, 2, K+1, bins)
+        pad = self._bins_pad - bins
+        if pad:
+            planes = np.pad(planes, ((0, 0), (0, 0), (0, 0), (0, pad)))
+        if shared:
+            return planes[0]  # (2, K+1, binsP)
+        return planes  # (C, 2, K+1, binsP)
+
+    def apply(self, carry, params, x):
+        if self._partitioned:
+            return self._apply_fdl(carry, params, x)
+        C, N = x.shape
+        Pn = carry["hist"].shape[1]
+        left = halo_from_left(x, Pn, TIME_AXIS, carry["hist"])
+        w = torch.cat([left, x], dim=1)  # (C, Pn+N)
+        W = torch.fft.rfft(w, n=self._F, dim=-1)
+        ir_f = params["ir_f"]
+        if ir_f.ndim == 2:  # shared (2, bins)
+            H = torch.complex(ir_f[0], ir_f[1])[None, :]
+        else:  # per-channel (C_local, 2, bins)
+            H = torch.complex(ir_f[:, 0], ir_f[:, 1])
+        y = torch.fft.irfft(W * H, n=self._F, dim=-1)
+        y = y[:, Pn: Pn + N].contiguous()
+        new_hist = last_shard(_tail(x, Pn), TIME_AXIS)
+        return {"hist": new_hist}, y
+
+    def _apply_fdl(self, carry, params, x):
+        """Distributed UPOLS step (class docstring). Local shapes: ``x``
+        (C, B); ``carry['zfdl']`` (K, 2, C, bs); ``params['ir_f']``
+        (2, K+1, bs) shared or (C, 2, K+1, bs) per-channel."""
+        C, B = x.shape
+        K, T = self._K, self._t
+        bins = B + 1
+        bs = self._bs
+        mesh = require_mesh()
+        # zero-padded block FFT: each rank transforms only its own block
+        A = torch.fft.rfft(x, n=self._F, dim=-1)  # (C, bins)
+        Ap = F.pad(torch.stack([A.real, A.imag]), (0, self._bins_pad - bins))
+        # transpose #1: blocks-over-ranks -> bins-over-ranks, (T, 2, C, bs):
+        # block g's spectrum, my bin slice (itself on one time shard)
+        new = mesh.all_to_all(
+            Ap.reshape(2, C, T, bs).permute(2, 0, 1, 3), TIME_AXIS)
+        # ext[i] = A-spectrum of global block (start - K + i), oldest first
+        ext = torch.cat([carry["zfdl"], new], dim=0)  # (K+T, 2, C, bs)
+        # windows[g, k] = A of block (start + g - K + k); Y_g needs k=0..K
+        w = torch.stack([ext[g: g + K + 1] for g in range(T)])
+        wr, wi = w[:, :, 0], w[:, :, 1]  # (T, K+1, C, bs)
+        ir_f = params["ir_f"]  # Grev: Grev[k] = G_{K-k} matches windows
+        if ir_f.ndim == 3:  # shared (2, K+1, bs)
+            eq, gr, gi = "gkcb,kb->gcb", ir_f[0], ir_f[1]
+        else:  # per-channel (C, 2, K+1, bs)
+            eq, gr, gi = "gkcb,ckb->gcb", ir_f[:, 0], ir_f[:, 1]
+        Yr = config.einsum(eq, wr, gr) - config.einsum(eq, wi, gi)
+        Yi = config.einsum(eq, wr, gi) + config.einsum(eq, wi, gr)
+        Yp = torch.stack([Yr, Yi], dim=1)  # (T, 2, C, bs)
+        # transpose #2: each output block's spectrum back to its owner,
+        # (2, C, T, bs) with the bin slices in order
+        back = mesh.all_to_all(Yp, TIME_AXIS).permute(1, 2, 0, 3)
+        Y = back.reshape(2, C, self._bins_pad)[:, :, :bins]
+        y = torch.fft.irfft(torch.complex(Y[0], Y[1]), n=self._F, dim=-1)
+        return {"zfdl": ext[T:]}, y[:, B:].contiguous()
 
 
-OLSStage = _not_ported("OLSStage")
-OLSGainStage = _not_ported("OLSGainStage")
-CompressorStage = _not_ported("CompressorStage")
-LimiterStage = _not_ported("LimiterStage")
-GateStage = _not_ported("GateStage")
-DelayStage = _not_ported("DelayStage")
-SpectralGainStage = _not_ported("SpectralGainStage")
-SpectralGateStage = _not_ported("SpectralGateStage")
-ChannelizerStage = _not_ported("ChannelizerStage")
-IQMixStage = _not_ported("IQMixStage")
-EnvelopeDetectorStage = _not_ported("EnvelopeDetectorStage")
-FMDiscriminatorStage = _not_ported("FMDiscriminatorStage")
+class OLSGainStage(OLSStage):
+    """Overlap-save convolution with a folded gain (sharded twin of
+    ``ops.fused.OLSWithGain``): the live gain scales the stage output,
+    exact since convolution is linear."""
+
+    def __init__(self, ir, gain=1.0):
+        super().__init__(ir)
+        self._gain = _f32(gain)
+
+    def build(self, c_global, c_local, n_local):
+        if self._gain.ndim == 1:
+            self._gain = self.pad_channels(self._gain, c_global, "gain")
+        super().build(c_global, c_local, n_local)
+        self.params["gain"] = self._gain
+        self.param_spec["gain"] = (
+            P() if self._gain.ndim == 0 else P(CH_AXIS)
+        )
+
+    def apply(self, carry, params, x):
+        carry, y = super().apply(carry, params, x)
+        g = params["gain"]
+        if g.ndim == 1:
+            g = g[:, None]
+        return carry, y * g
+
+
+def _sharded_envelope(carry_env, carry_lo, xa, release_coef, attack_oma):
+    """Smoothed peak envelope over a time-sharded chunk: the (associative)
+    max-decay release follower and one-pole attack smoother of
+    ``pipe_tpu_torch.ops.dynamics`` run as local scans, then extend across
+    ranks via an exclusive prefix of the per-rank scan totals, exactly the
+    biquad mechanic. The attack smoother gets the same refinement pass as
+    the streaming engine (``ops.dynamics.envelope_block``): the residual,
+    with the dd coefficient complement and the dd state low word, is
+    filtered as a second zero-entering cross-rank recurrence, so the sharded
+    envelope holds the streaming engine's floor. Every product is
+    elementwise: the same bits under every precision name.
+    Returns ``(new_env (C,2), new_lo (C,), env (C,N))``."""
+    C, N = xa.shape
+    ones = torch.ones((C,), dtype=torch.float32, device=xa.device)
+    zeros = torch.zeros((C,), dtype=torch.float32, device=xa.device)
+    # 1) local max-decay scan, zero-seeded
+    decay_cum, raw_loc = prefix_scan(
+        _max_decay_combine, (release_coef.expand(C, N), xa))
+    # 2) entering value via the cross-rank exclusive prefix of totals
+    pre_a, pre_m = exclusive_prefix(
+        TIME_AXIS, _max_decay_combine, (ones, zeros),
+        (decay_cum[:, -1], raw_loc[:, -1]),
+    )
+    enter_raw = torch.maximum(pre_m, carry_env[:, 0] * pre_a)
+    # 3) correction: raw[n] = max(raw_loc[n], enter_raw * r^(n+1))
+    raw = torch.maximum(raw_loc, enter_raw[:, None] * decay_cum)
+
+    # 4) attack smoother on corrected raw, same two-step structure. dd
+    # coefficient: ca_hi + ca_lo == 1 - oma exactly (eager ops fold nothing,
+    # see ops.dynamics.envelope_block)
+    oma = attack_oma
+    ca_hi = 1.0 - oma
+    ca_lo = (1.0 - ca_hi) - oma
+    e0 = carry_env[:, 1]
+    cab = ca_hi.expand(C, N)
+    # um is the rounded forcing oma*raw; ue its exact error term, reused by
+    # the refinement residual
+    um, ue = _two_prod(oma.expand(C, N), raw)
+
+    def chunk_recurrence(v, enter):
+        """y[n] = ca_hi y[n-1] + v[n] across the whole chunk, entering
+        value ``enter`` (C,) at the chunk start."""
+        cum, loc = prefix_scan(_affine1_combine, (cab, v))
+        pca, pu = exclusive_prefix(
+            TIME_AXIS, _affine1_combine, (ones, zeros),
+            (cum[:, -1], loc[:, -1]),
+        )
+        return loc + (pca * enter + pu)[:, None] * cum
+
+    y = chunk_recurrence(um, e0)
+
+    # 5) refinement: accurate residual (the previous output crosses the
+    # rank boundary as a one-sample halo), filtered as a second
+    # zero-entering chunk recurrence
+    yprev = torch.cat(
+        [halo_from_left(y, 1, TIME_AXIS, e0[:, None]), y[:, :-1]], dim=1
+    )
+    p, pe = _two_prod(cab, yprev)
+    s, se = _two_sum(p, um)
+    res = (s - y) + (pe + se + ue) + ca_lo * yprev
+    # the carried dd low word enters at the GLOBAL first sample only (local
+    # arithmetic: no collective sits in this branch)
+    if require_mesh().axis_index(TIME_AXIS) == 0:
+        res[:, 0] += ca_hi * carry_lo
+    dy = chunk_recurrence(res, zeros)
+    env = y + dy
+
+    eh, el = _two_sum(y[:, -1], dy[:, -1])
+    new_env = last_shard(torch.stack([raw[:, -1], eh], dim=1), TIME_AXIS)
+    new_lo = last_shard(el, TIME_AXIS)
+    return new_env, new_lo, env
+
+
+class _EnvelopeStage(Stage):
+    """Shared build of the envelope-driven stages: the envelope carry
+    (``env`` (C, 2) and its dd low word ``env_lo`` (C,)) and scalar params,
+    all live."""
+
+    _p: dict
+    sample_rate: float
+
+    def _gain(self, env, params):
+        raise NotImplementedError
+
+    def build(self, c_global, c_local, n_local):
+        self.carry = {
+            "env": np.zeros((c_global, 2), np.float32),
+            "env_lo": np.zeros((c_global,), np.float32),
+        }
+        self.params = {k: _f32(v) for k, v in self._p.items()}
+        self.carry_spec = {"env": P(CH_AXIS, None), "env_lo": P(CH_AXIS)}
+        self.param_spec = {k: P() for k in self._p}
+        self.out_c_global, self.out_c_local, self.out_n_local = (
+            c_global, c_local, n_local,
+        )
+
+    def apply(self, carry, params, x):
+        rc = _decay_coef(params["release_ms"], self.sample_rate)
+        ao = _attack_oma(params["attack_ms"], self.sample_rate)
+        new_env, new_lo, env = _sharded_envelope(
+            carry["env"], carry["env_lo"], torch.abs(x), rc, ao
+        )
+        return ({"env": new_env, "env_lo": new_lo},
+                x * self._gain(env, params))
+
+
+class CompressorStage(_EnvelopeStage):
+    """Peak compressor, time-sharded via :func:`_sharded_envelope`."""
+
+    def __init__(self, threshold_db=-18.0, ratio=4.0, attack_ms=5.0,
+                 release_ms=120.0, makeup_db=0.0, sample_rate=44100.0):
+        self._p = dict(
+            threshold_db=threshold_db, ratio=ratio, attack_ms=attack_ms,
+            release_ms=release_ms, makeup_db=makeup_db,
+        )
+        self.sample_rate = float(sample_rate)
+
+    def _gain(self, env, params):
+        return compressor_gain(
+            env, params["threshold_db"], params["ratio"], params["makeup_db"]
+        )
+
+
+class LimiterStage(CompressorStage):
+    """Peak limiter: a compressor with an infinite ratio (gain above the
+    threshold is fully cancelled after the attack window)."""
+
+    def __init__(self, threshold_db=-1.0, attack_ms=0.5, release_ms=50.0,
+                 makeup_db=0.0, sample_rate=44100.0):
+        super().__init__(
+            threshold_db=threshold_db, ratio=float("inf"),
+            attack_ms=attack_ms, release_ms=release_ms,
+            makeup_db=makeup_db, sample_rate=sample_rate,
+        )
+
+
+class GateStage(_EnvelopeStage):
+    """Downward-expander noise gate (``pipe_tpu_torch.ops.dynamics
+    .NoiseGate``), time-sharded: same envelope machinery as the compressor,
+    hard gain split at the threshold."""
+
+    def __init__(self, threshold_db=-50.0, range_db=80.0, attack_ms=1.0,
+                 release_ms=200.0, sample_rate=44100.0):
+        self._p = dict(
+            threshold_db=threshold_db, range_db=range_db,
+            attack_ms=attack_ms, release_ms=release_ms,
+        )
+        self.sample_rate = float(sample_rate)
+
+    def _gain(self, env, params):
+        env_db = 20.0 * torch.log10(torch.clamp_min(env, 1e-8))
+        atten = torch.pow(10.0, -params["range_db"] / 20.0)
+        return torch.where(env_db >= params["threshold_db"], 1.0, atten)
+
+
+class DelayStage(Stage):
+    """Pure delay / feedback echo, time-sharded, for ANY ``delay_frames``.
+
+    The delay-line state is a TIME-SHARDED BLOCK RING: each rank carries its
+    OWN last ``kc = ceil(D/N)`` local blocks of the delayed stream (``N`` =
+    global chunk frames), so carry memory is O(C*D/T) per rank and the carry
+    update is a local roll, zero collectives. The tap ``d[i] = s[global_i -
+    D]`` is one n-wide window of the virtual block stream, split over at
+    most two source blocks ``h = ceil(D/n)`` and ``h-1`` hops to the left:
+    two cyclic shifts move EXACTLY the needed (n-r)- and r-sample slices
+    (``r = h*n - D``), each source selecting the ring slot its destination's
+    chunk-back distance asks for.
+
+    Four regimes, the JAX package's choice:
+
+    - **pure delay** (no feedback requested, ``D < N``): ring of the input
+      stream x; feedback is structurally unavailable.
+    - **feedback free** (``D >= N``): the tap reads only PREVIOUS chunks, so
+      the recurrence ``s[n] = x[n] + fb*s[n-D]`` never crosses ranks within
+      a chunk: the ring stores s and feedback is structurally free;
+      ``feedback`` is a live parameter.
+    - **feedback echo with** ``D <= n_local`` (ladder): the recurrence
+      crosses rank boundaries; the D-history transfer across one m-sample
+      segment is an affine map with a rotated index (lane j gets gain
+      ``fb^{(m+j)//D}`` and rotation ``m % D``, both closed forms in m), so
+      only the (C, D) offset vectors ride the cross-rank exclusive-prefix
+      ladder of shifts. The carry is the replicated ``hist`` (C, D).
+    - **feedback echo with** ``n_local < D < N`` (wave-DAG): the dependency
+      distance D makes positions ``[w*D, (w+1)*D)`` a wave depending only
+      on the wave before it, so the whole chunk evaluates in ``W =
+      ceil(N/D)`` ELEMENTWISE passes, each fetching its D-back window with
+      the pure tap's two exact-slice cyclic shifts (the CURRENT s in the
+      send buffer): 2 W collectives a chunk, each a call from the host. The
+      evaluation order is exactly the sequential recurrence, so the
+      precision is the streaming engine's.
+
+    The recurrences are elementwise and scans: nothing here consults the
+    precision knob.
+    """
+
+    def __init__(self, delay_frames: int, feedback: float = 0.0,
+                 wet: float = 1.0, dry: float = 0.0,
+                 allow_feedback: Optional[bool] = None):
+        if delay_frames < 1:
+            raise ValueError("delay_frames must be >= 1")
+        if allow_feedback is False and feedback != 0.0:
+            raise ValueError(
+                "contradictory arguments: nonzero feedback with "
+                "allow_feedback=False (the pure-delay path would silently "
+                "ignore the feedback)"
+            )
+        self.delay_frames = int(delay_frames)
+        self._init = dict(feedback=feedback, wet=wet, dry=dry)
+        self._allow_feedback = allow_feedback
+
+    def build(self, c_global, c_local, n_local):
+        D = self.delay_frames
+        T = max(1, int(self.time_shards))
+        N = n_local * T  # global chunk frames
+        self._n, self._T, self._N = n_local, T, N
+        # D >= N makes feedback structurally free (the tap only reads
+        # previous chunks), mirroring the streaming ring at D >= block
+        self.can_feedback = (
+            D >= N
+            or self._init["feedback"] != 0.0
+            or bool(self._allow_feedback)
+        )
+        # Feedback regimes by D vs the sharding:
+        #   D <= n_local : offsets-only affine prefix LADDER
+        #   n_local < D < N : WAVE-DAG, ceil(N/D) elementwise waves of
+        #                  exact-slice ring fetches; bitwise the sequential
+        #                  evaluation order
+        #   D >= N       : structurally free (ring of s, zero extra)
+        self._wave = self.can_feedback and n_local < D < N
+        self._ladder = self.can_feedback and D <= n_local
+        self.params = {k: _f32(v) for k, v in self._init.items()}
+        self.param_spec = {k: P() for k in self._init}
+        if self._ladder:
+            # D <= n_local: the replicated history is bounded by the chunk
+            self.carry = {"hist": np.zeros((c_global, D), np.float32)}
+            self.carry_spec = {"hist": P(CH_AXIS, None)}
+        else:
+            kc = -(-D // N)
+            self._kc = kc
+            # block ring: rank g's columns hold ITS OWN blocks from
+            # chunk-back kc..1 (oldest first): carry memory /T
+            self.carry = {"ring": np.zeros((c_global, kc * N), np.float32)}
+            self.carry_spec = {"ring": P(CH_AXIS, TIME_AXIS)}
+        self.out_c_global, self.out_c_local, self.out_n_local = (
+            c_global, c_local, n_local,
+        )
+
+    # -- block-ring tap: exact-slice cyclic fetch ------------------------
+
+    def _fetch(self, buf, k, lo, hi):
+        """Columns ``[lo, hi)`` of virtual stream block ``g - k`` (``g`` =
+        this rank's time index; block ``-m`` = the stream's m-th block
+        back, owned by rank ``(g-k) mod T`` at chunk-back ``ceil((k -
+        dst)/T)``). ``buf`` is the shared send buffer ``[zeros | ring |
+        current]`` (zeros resolve reads past the ring depth, the stream's
+        prehistory; the current slot is zeros on the D >= N feedback ring,
+        where it is provably never selected). Each rank ships only the
+        [lo, hi) window its single cyclic destination needs. Whether there
+        is a call depends on ``k`` and the mesh only, never on the rank."""
+        n, T, kc = self._n, self._T, self._kc
+        w = hi - lo
+        if w <= 0:
+            return buf[:, :0]
+        mesh = require_mesh()
+        g = mesh.axis_index(TIME_AXIS)
+        dst = (g + k) % T
+        # chunk-backs my destination needs (0 = its current chunk)
+        q = max((k - dst + T - 1) // T, 0)
+        # send-buffer slots: [zeros | back-kc .. back-1 | current]; back-q
+        # lives at slot kc+1-q, clamped onto the zero slot for prehistory
+        slot = min(max(kc + 1 - q, 0), kc + 1)
+        send = dynamic_slice(buf, slot * n + lo, w)
+        # hops % T == 0: own ring slot, no communication
+        return mesh.shift_right(send, TIME_AXIS, k % T, cyclic=True)
+
+    def apply(self, carry, params, x):
+        if self._ladder:
+            return self._apply_ladder(carry, params, x)
+        C, n = x.shape
+        D = self.delay_frames
+        ring = carry["ring"]  # (C, kc*n) own previous blocks
+        h = -(-D // n)
+        r = h * n - D  # 0 <= r < n: window offset in block g-h
+        zero = torch.zeros_like(x)
+
+        def tap(cur):
+            # window [g*n - D, g*n - D + n) = block(g-h)[r:] ++
+            # block(g-h+1)[:r]
+            buf = torch.cat([zero, ring, cur], dim=1)
+            return torch.cat(
+                [self._fetch(buf, h, r, n), self._fetch(buf, h - 1, 0, r)],
+                dim=1,
+            )
+
+        if self._wave:
+            # positions [w*D, (w+1)*D) form wave w: each depends only on
+            # the wave before it (s[p-D] is w-1's final value) or, for wave
+            # 0, on the previous chunk's ring. Each wave is ONE elementwise
+            # fma over a freshly fetched D-back window, masked to its own
+            # positions.
+            fb = params["feedback"]
+            g = require_mesh().axis_index(TIME_AXIS)
+            p = g * n + torch.arange(n, device=x.device)  # global position
+            s = x
+            delayed = zero
+            for w in range(-(-self._N // D)):
+                dfull = tap(s)
+                mask = ((p >= w * D) & (p < (w + 1) * D))[None, :]
+                s = torch.where(mask, x + fb * dfull, s)
+                delayed = torch.where(mask, dfull, delayed)
+        else:
+            # for D >= N both pieces predate this chunk, so the ring may
+            # store s and feedback is free (the current slot is then never
+            # selected: pass zeros)
+            delayed = tap(zero if self.can_feedback else x)
+            s = x + params["feedback"] * delayed if self.can_feedback else x
+        y = params["dry"] * x + params["wet"] * delayed
+        return {"ring": torch.cat([ring[:, n:], s], dim=1)}, y
+
+    def _apply_ladder(self, carry, params, x):
+        C, n = x.shape
+        D = self.delay_frames
+        mesh = require_mesh()
+        T = mesh.axis_size(TIME_AXIS)
+        idx = mesh.axis_index(TIME_AXIS)
+        hist = carry["hist"]  # (C, D): trailing D samples of s
+        fb = params["feedback"]
+        # 1) locally-driven response s0 (zero entering history): lane-
+        # parallel scan over left-padded rows of D (pad lanes are zero, so
+        # they do not perturb the real positions)
+        w = (-n) % D
+        m = (n + w) // D
+        rows = F.pad(x, (w, 0)).reshape(C, m, D)
+        _, s0_rows = prefix_scan(_affine1_combine,
+                                 (fb.expand(rows.shape), rows))
+        s0 = s0_rows.reshape(C, m * D)[:, w:]
+
+        # 2) per-rank history transfer h_out[j] = fb^e_j h_in[(j+n)%D] + b_j
+        # with e_j = (n+j)//D: the closed form of the lane-touch count over
+        # an n-sample segment (0 for untouched lanes)
+        j = torch.arange(D, device=x.device)
+
+        def seg_map(seg):
+            """(gains, rotation) of the composed transfer over a
+            ``seg``-sample segment."""
+            return _pow_int(fb, (seg + j) // D), seg % D
+
+        a_dev, _ = seg_map(n)  # fb^0 = 1 on untouched lanes
+        p = n - D + j  # position feeding lane j (negative = untouched)
+        b_dev = torch.where(
+            (p >= 0)[None, :], s0[:, p.clamp_min(0)], 0.0)  # (C, D)
+
+        # cross-rank entering history via an OFFSETS-ONLY exclusive-prefix
+        # ladder: the gain/rotation of any segment has a closed form, so
+        # ranks derive them locally and only the (C, D) offsets ride the
+        # shifts. Every rank calls every shift, whatever its index.
+        # Hillis-Steele over seeds: acc_d covers segment [max(0, d-k), d)
+        # before the step-k round, so the combine's later-segment map is
+        # seg_map(min(d, k) * n)
+        acc = mesh.shift_right(b_dev, TIME_AXIS, 1)  # zeros at index 0
+        k = 1
+        while k < T:
+            recv = mesh.shift_right(acc, TIME_AXIS, k)
+            if idx >= k:
+                a_acc, r_acc = seg_map(min(idx, k) * n)
+                acc = a_acc[None, :] * torch.roll(recv, -r_acc, dims=1) + acc
+            k *= 2
+        # entering history for this rank
+        pre_a, pre_r = seg_map(idx * n)
+        h_in = pre_a[None, :] * torch.roll(hist, -pre_r, dims=1) + acc
+
+        # 3) boundary correction: s[i] = s0[i] + fb^{i//D + 1} h_in[i % D]
+        i = torch.arange(n, device=x.device)
+        s = s0 + _pow_int(fb, i // D + 1)[None, :] * h_in[:, i % D]
+
+        # 4) delayed tap needs no exchange: history for the first D lanes,
+        # the local stream after that
+        if D >= n:
+            delayed = h_in[:, :n]
+        else:
+            delayed = torch.cat([h_in, s[:, :-D]], dim=1)
+        y = params["dry"] * x + params["wet"] * delayed
+
+        # 5) carry: every rank applies its OWN transfer to its h_in; the
+        # last rank's result is the global exit history
+        h_out = a_dev[None, :] * torch.roll(h_in, -(n % D), dims=1) + b_dev
+        return {"hist": broadcast_last(h_out, TIME_AXIS)}, y
+
+
+class ChannelizerStage(Stage):
+    """Polyphase DFT filterbank analysis bank, time-sharded: the branch-FIR
+    history is a ``K*(S-1)``-sample input halo (the FIR tail mechanic); each
+    rank channelizes its aligned local window independently. Output is ``C *
+    2 * (K//2+1)`` stacked re/im channels at rate ``sr/K``
+    (``pipe_tpu_torch.ops.channelizer`` layout)."""
+
+    def __init__(self, num_channels: int, taps_per_branch: int = 16):
+        if num_channels < 2 or num_channels % 2:
+            raise ValueError("num_channels must be even and >= 2")
+        self.K = int(num_channels)
+        self._gp = _f32(polyphase_branches(
+            design_prototype(num_channels, taps_per_branch), num_channels))
+
+    def build(self, c_global, c_local, n_local):
+        K = self.K
+        S = int(self._gp.shape[1])
+        H = K * (S - 1)
+        if n_local % K:
+            raise ShapeConstraintError(
+                f"local chunk {n_local} must be a multiple of K={K}"
+            )
+        if H > n_local:
+            raise ShapeConstraintError(
+                f"channelizer halo {H} exceeds local chunk {n_local}"
+            )
+        self._H = H
+        bins = K // 2 + 1
+        self.carry = {"hist": np.zeros((c_global, H), np.float32)}
+        self.params = {"gp": self._gp}
+        self.carry_spec = {"hist": P(CH_AXIS, None)}
+        self.param_spec = {"gp": P()}
+        self.out_c_global = c_global * 2 * bins
+        self.out_c_local = c_local * 2 * bins
+        # C-major output layout: pad channels land at trailing rows
+        self.out_c_user = self.user_channels(c_global) * 2 * bins
+        self.out_n_local = n_local // K
+
+    def apply(self, carry, params, x):
+        C, N = x.shape
+        K = self.K
+        bins = K // 2 + 1
+        left = halo_from_left(x, self._H, TIME_AXIS, carry["hist"])
+        re, im = channelize_block(left, x, params["gp"], K)
+        out = torch.stack([re, im], dim=2).reshape(C * bins * 2, N // K)
+        new_hist = last_shard(_tail(x, self._H), TIME_AXIS)
+        return {"hist": new_hist}, out
+
+
+class IQMixStage(Stage):
+    """Quadrature downconverter, time+channel sharded: exact integer-phase
+    oscillator offset by each rank's global sample position. Output is
+    ``(2*C, N)`` with each channel shard locally ordered [I..., Q...]
+    (``pipe_tpu_torch.ops.demod.IQMix``; under channel sharding the I/Q
+    pairing is per-shard, which downstream detector stages split locally).
+    The carry ``n`` is the chunk's start index modulo the period: a host int
+    on every rank, an int32 scalar among the global carries."""
+
+    channel_pad_safe = False  # positional I/Q rail layout
+
+    def __init__(self, freq_hz: float, sample_rate: float = 44100.0):
+        self.freq_hz = float(freq_hz)
+        self.num, self.den = _rationalize(freq_hz, sample_rate, 1 << 14)
+
+    def build(self, c_global, c_local, n_local):
+        self.carry = {"n": np.asarray(0, np.int32)}
+        self.params = {}
+        self.carry_spec = {"n": P()}
+        self.param_spec = {}
+        self._n_local = n_local
+        self.out_c_global = 2 * c_global
+        self.out_c_local = 2 * c_local
+        self.out_n_local = n_local
+
+    def apply(self, carry, params, x):
+        C, N = x.shape
+        mesh = require_mesh()
+        # rank-local phase start: chunk start + my global offset
+        n0 = (carry["n"]
+              + mesh.axis_index(TIME_AXIS) * self._n_local) % self.den
+        c, s, _ = osc_block(n0, self.num, self.den, N, x.device)
+        i = x * c[None, :]
+        q = x * (-s[None, :])
+        new_n = (carry["n"]
+                 + mesh.axis_size(TIME_AXIS) * self._n_local) % self.den
+        return {"n": new_n}, torch.cat([i, q], dim=0)
+
+
+class EnvelopeDetectorStage(Stage):
+    """Magnitude over local I/Q pairs: ``(2C, N) -> (C, N)`` (AM detector,
+    ``pipe_tpu_torch.ops.demod.EnvelopeDetector``). Stateless."""
+
+    channel_pad_safe = False
+
+    def build(self, c_global, c_local, n_local):
+        if c_local % 2:
+            raise ValueError("EnvelopeDetectorStage expects paired I/Q rails")
+        self.carry = ()
+        self.params = {}
+        self.carry_spec = ()
+        self.param_spec = {}
+        self.out_c_global = c_global // 2
+        self.out_c_local = c_local // 2
+        self.out_n_local = n_local
+
+    def apply(self, carry, params, x):
+        half = x.shape[0] // 2
+        i, q = x[:half], x[half:]
+        return (), torch.sqrt(i * i + q * q)
+
+
+class FMDiscriminatorStage(Stage):
+    """Quadrature FM discriminator over local I/Q pairs: ``(2C, N) -> (C,
+    N)`` of instantaneous frequency in cycles/sample
+    (``pipe_tpu_torch.ops.demod.FMDiscriminator``). The previous I/Q sample
+    is a one-sample halo from the left neighbour."""
+
+    channel_pad_safe = False
+
+    def build(self, c_global, c_local, n_local):
+        if c_local % 2:
+            raise ValueError("FMDiscriminatorStage expects paired I/Q rails")
+        self.carry = {"prev": np.zeros((c_global, 1), np.float32)}
+        self.params = {}
+        self.carry_spec = {"prev": P(CH_AXIS, None)}
+        self.param_spec = {}
+        self.out_c_global = c_global // 2
+        self.out_c_local = c_local // 2
+        self.out_n_local = n_local
+
+    def apply(self, carry, params, x):
+        C, N = x.shape
+        half = C // 2
+        prev = halo_from_left(x, 1, TIME_AXIS, carry["prev"])  # (2C, 1)
+        buf = torch.cat([prev, x], dim=1)  # (2C, 1+N)
+        i, q = x[:half], x[half:]
+        ip, qp = buf[:half, :N], buf[half:, :N]
+        re = ip * i + qp * q
+        im = ip * q - qp * i
+        f = torch.atan2(im, re) / (2.0 * np.pi)
+        new_prev = last_shard(_tail(x, 1), TIME_AXIS)
+        return {"prev": new_prev}, f
+
+
+class _SpectralStageBase(Stage):
+    """Streaming STFT -> per-bin transform -> weighted-OLA, time-sharded.
+
+    Two halos per chunk step, both one hop: the analysis history (each rank
+    frames its windows against the left neighbour's trailing ``W - hop``
+    samples, exactly the FIR tail mechanic) and the synthesis spill (the
+    overlap-add contribution of each rank's last windows lands up to ``W -
+    hop`` samples past its right edge, so it is sent to the right neighbour
+    and added at its output start). The last rank's spill becomes the next
+    chunk's carried OLA tail. Per-window transforms are memoryless, so
+    sharded output matches the sequential stream (same windows at the same
+    global hop alignment).
+    """
+
+    def __init__(self, window_size: int, hop: int):
+        self.window_size = int(window_size)
+        self.hop = int(hop)
+        self._wa, self._ws = design_stft_window(self.window_size, self.hop)
+        self._windows = {}  # device -> (analysis, synthesis) tensors
+
+    @property
+    def bins(self) -> int:
+        return self.window_size // 2 + 1
+
+    def _spectral_params(self):
+        raise NotImplementedError
+
+    def _spectral_param_specs(self):
+        raise NotImplementedError
+
+    def _transform(self, re, im, params):
+        raise NotImplementedError
+
+    def build(self, c_global, c_local, n_local):
+        L = self.window_size - self.hop
+        if n_local % self.hop != 0:
+            raise ShapeConstraintError(
+                f"local chunk {n_local} must be a multiple of hop {self.hop}"
+            )
+        if L > n_local:
+            raise ShapeConstraintError(
+                f"STFT halo {L} exceeds local chunk {n_local}; "
+                "use a larger chunk or fewer time shards"
+            )
+        self.carry = {
+            "hist": np.zeros((c_global, L), np.float32),
+            "tail": np.zeros((c_global, L), np.float32),
+        }
+        self.params = self._spectral_params()
+        self.carry_spec = {
+            "hist": P(CH_AXIS, None),
+            "tail": P(CH_AXIS, None),
+        }
+        self.param_spec = self._spectral_param_specs()
+        self.out_c_global, self.out_c_local, self.out_n_local = (
+            c_global, c_local, n_local,
+        )
+
+    def apply(self, carry, params, x):
+        C, N = x.shape
+        W, H = self.window_size, self.hop
+        L = W - H
+        win = self._windows.get(x.device)
+        if win is None:
+            win = self._windows[x.device] = (
+                torch.from_numpy(self._wa).to(x.device),
+                torch.from_numpy(self._ws).to(x.device),
+            )
+        left = halo_from_left(x, L, TIME_AXIS, carry["hist"])
+        ext = torch.cat([left, x], dim=1)  # [history, chunk]
+        spec = torch.fft.rfft(frame_hops(ext, W, H, N // H) * win[0], dim=-1)
+        re, im = self._transform(spec.real, spec.imag, params)
+        out = torch.fft.irfft(torch.complex(re, im), n=W, dim=-1) * win[1]
+        acc = _ola_fold(out, H)  # (C, N + L)
+        spill = acc[:, N:]  # lands on the right neighbour
+        incoming = halo_from_left(spill, L, TIME_AXIS, carry["tail"])
+        y = acc[:, :N].clone()
+        y[:, :L] += incoming
+        new_hist = last_shard(_tail(x, L), TIME_AXIS)
+        new_tail = last_shard(spill, TIME_AXIS)
+        return {"hist": new_hist, "tail": new_tail}, y
+
+
+class SpectralGainStage(_SpectralStageBase):
+    """Per-bin gain curve in the STFT domain, time+channel sharded. ``gains``
+    is ``(bins,)`` shared (replicated) or ``(C, bins)`` per-channel (sharded
+    over CH_AXIS); live-retunable between chunks."""
+
+    def __init__(self, window_size: int, hop: int, gains=None):
+        super().__init__(window_size, hop)
+        if gains is None:
+            gains = np.ones(self.bins, np.float32)
+        g = _f32(gains)
+        if g.ndim not in (1, 2) or g.shape[-1] != self.bins:
+            raise ValueError(
+                f"gains must be (bins,) or (C, bins) with bins={self.bins}"
+            )
+        self._gains = g
+
+    def build(self, c_global, c_local, n_local):
+        if self._gains.ndim == 2:
+            self._gains = self.pad_channels(self._gains, c_global, "gains")
+        super().build(c_global, c_local, n_local)
+
+    def _spectral_params(self):
+        return {"gains": self._gains}
+
+    def _spectral_param_specs(self):
+        return {"gains": P() if self._gains.ndim == 1 else P(CH_AXIS, None)}
+
+    def _transform(self, re, im, params):
+        g = params["gains"]
+        g = g[None, None, :] if g.ndim == 1 else g[:, None, :]
+        return re * g, im * g
+
+
+class SpectralGateStage(_SpectralStageBase):
+    """Per-bin noise gate (soft-knee downward expander) in the STFT domain,
+    time+channel sharded. Threshold/reduction are live parameters."""
+
+    def __init__(self, window_size: int, hop: int, threshold: float,
+                 reduction_db: float = -80.0, knee_db: float = 6.0):
+        super().__init__(window_size, hop)
+        self._threshold = float(threshold)
+        self._reduction_db = float(reduction_db)
+        self.knee_db = max(float(knee_db), 1e-3)
+
+    def _spectral_params(self):
+        return {
+            "threshold": np.float32(self._threshold),
+            "reduction_db": np.float32(self._reduction_db),
+        }
+
+    def _spectral_param_specs(self):
+        return {"threshold": P(), "reduction_db": P()}
+
+    def _transform(self, re, im, params):
+        mag = torch.sqrt(re * re + im * im) + 1e-30
+        over_db = 20.0 * torch.log10(mag / params["threshold"])
+        frac = torch.clamp(over_db / self.knee_db + 0.5, 0.0, 1.0)
+        floor = 10.0 ** (params["reduction_db"] / 20.0)
+        gain = floor + (1.0 - floor) * frac
+        return re * gain, im * gain
 
 
 def _zip_spec(tree, spec_tree):
@@ -815,22 +1711,32 @@ class ShardedChain:
 
     def _localize(self, tree, spec_tree):
         """This rank's block of every leaf of a tree of global host arrays,
-        as float32 tensors on the chain's device."""
+        as float32 tensors on the chain's device; a 0-d integer leaf (a
+        stream counter) as a host ``int``."""
         leaves, specs, treedef = _zip_spec(tree, spec_tree)
-        local = [
-            torch.tensor(np.ascontiguousarray(
-                self.mesh.local_block(np.asarray(l, np.float32), s)),
-                device=self.device)
-            for l, s in zip(leaves, specs)
-        ]
+        local = []
+        for l, s in zip(leaves, specs):
+            a = np.asarray(l)
+            if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
+                local.append(int(a))
+                continue
+            # np.array keeps a 0-d leaf 0-d (ascontiguousarray would not)
+            block = self.mesh.local_block(a, s)
+            local.append(torch.tensor(
+                np.array(block, dtype=np.float32, order="C"),
+                device=self.device))
         return tree_unflatten(treedef, local)
 
     def _globalize(self, tree, spec_tree):
         """The global host arrays of a tree of local tensors (a collective
-        over the channel axis; the time axis holds replicas)."""
+        over every axis a leaf is sharded on; the other axes hold
+        replicas). A host ``int`` comes back as an int32 scalar."""
         leaves, specs, treedef = _zip_spec(tree, spec_tree)
         out = []
         for l, s in zip(leaves, specs):
+            if isinstance(l, int):
+                out.append(np.asarray(l, np.int32))
+                continue
             for dim, axis in enumerate(s.axes):
                 if axis is None:
                     continue
@@ -883,13 +1789,23 @@ class ShardedChain:
                 f"{len(carries)} carry trees for {len(self.stages)} stages")
         new = []
         for c, st in zip(carries, self.stages):
-            have, _, _ = _zip_spec(st.carry, st.carry_spec)
-            got, _, _ = _zip_spec(c, st.carry_spec)
+            have, _, havedef = _zip_spec(st.carry, st.carry_spec)
+            got, gotdef = tree_flatten(c)
+            if gotdef != havedef:
+                raise ValueError(
+                    f"{type(st).__name__}: carry tree {gotdef} where the "
+                    f"chain holds {havedef}")
             for h, g in zip(have, got):
                 if tuple(np.shape(g)) != tuple(h.shape):
                     raise ValueError(
                         f"{type(st).__name__}: carry of shape {np.shape(g)} "
                         f"where the chain holds {h.shape}")
+                if (np.issubdtype(np.asarray(g).dtype, np.integer)
+                        != np.issubdtype(h.dtype, np.integer)):
+                    raise ValueError(
+                        f"{type(st).__name__}: carry of dtype "
+                        f"{np.asarray(g).dtype} where the chain holds "
+                        f"{h.dtype}")
             new.append(self._localize(c, st.carry_spec))
         self.carries = tuple(new)
 

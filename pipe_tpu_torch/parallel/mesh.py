@@ -13,8 +13,8 @@ itself a collective); a rank beyond the mesh gets a mesh whose ``member`` is
 False and takes part in nothing further.
 
 The collectives (:meth:`Mesh.all_gather`, :meth:`Mesh.all_reduce`,
-:meth:`Mesh.broadcast`, :meth:`Mesh.shift_right`) run on one axis, inside
-the caller's row or column. How a tensor crosses is the mesh's *transport*,
+:meth:`Mesh.broadcast`, :meth:`Mesh.shift_right`, :meth:`Mesh.all_to_all`)
+run on one axis, inside the caller's row or column. How a tensor crosses is the mesh's *transport*,
 named at ``initialize`` and never chosen by where a tensor happens to lie:
 
 - ``"nccl"``: tensors on the card, NCCL (one card per rank);
@@ -203,33 +203,67 @@ class Mesh:
         self._count("broadcast", buf.numel() * buf.element_size(), started)
         return self._stage_in(buf, x)
 
-    def shift_right(self, x: torch.Tensor, axis: str, hops: int = 1) -> torch.Tensor:
+    def shift_right(self, x: torch.Tensor, axis: str, hops: int = 1,
+                    cyclic: bool = False) -> torch.Tensor:
         """Position ``i`` of ``axis`` receives the ``x`` of position
         ``i - hops``; the first ``hops`` positions receive zeros and the last
         ``hops`` send to nobody (``lax.ppermute`` with the pairs ``(i, i +
-        hops)``). Returns after the receive has been ordered before the
-        caller's next work on the tensor and the send is complete."""
+        hops)``). With ``cyclic`` the positions wrap: ``i`` receives from
+        ``(i - hops) mod n`` and every rank sends and receives (the pairs
+        ``(i, (i + hops) % n)``); a shift by a multiple of ``n`` is ``x``
+        itself and no call. Returns after the receive has been ordered before
+        the caller's next work on the tensor and the send is complete."""
         n = self.shape[axis]
         i = self._index[axis]
-        if hops >= n:
-            return torch.zeros_like(x)
+        if cyclic:
+            hops %= n
+            if hops == 0:
+                return x
+            dst, src = (i + hops) % n, (i - hops) % n
+        else:
+            if hops >= n:
+                return torch.zeros_like(x)
+            dst = i + hops if i + hops < n else None
+            src = i - hops if i - hops >= 0 else None
         group, ranks = self._groups[axis]
         started = time.perf_counter()
-        sends = i + hops < n
-        recvs = i - hops >= 0
         out = self._stage_out(x)  # also checks the tensor's side
         got = self._empty_like_staged(tuple(x.shape), x)
         ops = []
-        if sends:
-            ops.append(dist.P2POp(dist.isend, out, ranks[i + hops], group=group))
-        if recvs:
-            ops.append(dist.P2POp(dist.irecv, got, ranks[i - hops], group=group))
+        # with two ranks the peer of the send is the peer of the receive:
+        # a send only ever meets a receive, so the pair cannot cross-match
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, out, ranks[dst], group=group))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, got, ranks[src], group=group))
         for req in dist.batch_isend_irecv(ops) if ops else ():
             req.wait()
         self._count("send_recv", x.numel() * x.element_size() * len(ops), started)
-        if not recvs:
+        if src is None:
             return torch.zeros_like(x)
         return self._stage_in(got, x)
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The transpose over ``axis``: ``x`` has the axis size on dimension
+        0, and position ``i`` gets slice ``i`` of every rank's ``x``, stacked
+        on dimension 0 in axis order (``lax.all_to_all`` with ``tiled=False``
+        once the caller has moved the split dimension to the front). Counted
+        with the bytes a rank receives, its own slice included."""
+        n = self.shape[axis]
+        if x.shape[0] != n:
+            raise ValueError(
+                f"all_to_all over the {axis!r} axis of size {n} needs that "
+                f"size on dimension 0, got {tuple(x.shape)}")
+        if n == 1:
+            return x
+        group, _ = self._groups[axis]
+        started = time.perf_counter()
+        src = self._stage_out(x)
+        out = self._empty_like_staged(tuple(x.shape), x)
+        # NCCL and gloo both carry it; equal splits of dimension 0
+        dist.all_to_all_single(out.view(n, -1), src.view(n, -1), group=group)
+        self._count("all_to_all", out.numel() * out.element_size(), started)
+        return self._stage_in(out, x)
 
 
 def world_size() -> int:

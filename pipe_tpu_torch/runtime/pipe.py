@@ -126,11 +126,15 @@ class Pipe:
     card, unless the CPU was asked for with ``set_default_device("cpu")``);
     ``lookahead`` and ``batch_blocks`` are the executor's dispatch knobs
     (:class:`~pipe_tpu_torch.runtime.executor.LineExecutor`); ``stats`` an
-    optional :class:`~pipe_tpu_torch.profiling.StatsRecorder`."""
+    optional :class:`~pipe_tpu_torch.profiling.StatsRecorder`.
+    ``host_sync_every`` is the JAX package's period, in dispatches, of a
+    mesh pipe's cross-host health round: it is stored and has no effect
+    without a mesh."""
 
     def __init__(self, block_size: int, *lines: Line, stats=None,
                  lookahead: int = 1, batch_blocks: int = 1, mesh=None,
-                 optimize: bool = False, device=None):
+                 host_sync_every: int = 16, optimize: bool = False,
+                 device=None):
         if not lines:
             raise ValueError("pipe without lines")
         refuse_unported(mesh=mesh)
@@ -141,6 +145,7 @@ class Pipe:
             lines = tuple(_optimize.fuse(line) for line in lines)
         self.block_size = block_size
         self.device = device
+        self.host_sync_every = host_sync_every
         self.stats = stats
         self.lookahead = lookahead
         self.batch_blocks = batch_blocks

@@ -673,3 +673,107 @@ def test_sharded_biquad_stage_launches_the_tile_kernel(cuda):
     kernels.reset_counts()
     small.step(x[:, :1000])
     assert kernels.launch_counts()["iir_tiles"] == 0
+
+
+def _sharded_cases():
+    """name -> (stages of parallel, channels, chunk, input kind)."""
+    from pipe_tpu_torch import parallel
+
+    rng = np.random.default_rng(11)
+    ir = rng.standard_normal(3000) * np.exp(-np.arange(3000) / 600.0)
+    lp = ops.design_lowpass(63, 4000, 48000)
+    return {
+        "ols-single-fft": (lambda: [parallel.OLSStage(ir[:300])], 8, 2048, "noise"),
+        "ols-partitioned": (lambda: [parallel.OLSGainStage(ir, 0.5)], 8, 1024, "noise"),
+        "compressor": (lambda: [parallel.CompressorStage(-12.0, 3.0, 2.0, 60.0)],
+                       8, 2048, "noise"),
+        "limiter-gate": (lambda: [parallel.LimiterStage(-6.0, 0.5, 40.0),
+                                  parallel.GateStage(-60.0, 60.0, 1.0, 5.0)],
+                         8, 2048, "noise"),
+        "delay-ladder": (lambda: [parallel.DelayStage(300, feedback=0.6, wet=0.8,
+                                                      dry=0.5)], 8, 2048, "noise"),
+        "delay-ring": (lambda: [parallel.DelayStage(3000, feedback=0.6, wet=0.8,
+                                                    dry=0.5)], 8, 2048, "noise"),
+        "delay-pure": (lambda: [parallel.DelayStage(300, wet=1.0, dry=0.25)],
+                       8, 2048, "noise"),
+        "spectral": (lambda: [parallel.SpectralGainStage(
+            256, 64, np.linspace(1.0, 0.1, 129)),
+            parallel.SpectralGateStage(256, 64, 8.0, -40.0)], 8, 2048, "noise"),
+        "channelizer": (lambda: [parallel.ChannelizerStage(8, 8)], 8, 2048, "noise"),
+        "fm-receiver": (lambda: [parallel.IQMixStage(10000.0, 48000.0),
+                                 parallel.FIRStage(lp),
+                                 parallel.FMDiscriminatorStage()], 8, 2048, "fm"),
+        "am-receiver": (lambda: [parallel.IQMixStage(10000.0, 48000.0),
+                                 parallel.FIRStage(lp),
+                                 parallel.EnvelopeDetectorStage()], 8, 2048, "fm"),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "ols-single-fft", "ols-partitioned", "compressor", "limiter-gate",
+    "delay-ladder", "delay-ring", "delay-pure", "spectral", "channelizer",
+    "fm-receiver", "am-receiver"])
+def test_sharded_stages_on_card_match_cpu(cuda, name):
+    """Every stage beyond the main path, on a 1x1 mesh: the chain on the
+    card against the same chain on the CPU at >= 100 dB over three chunks,
+    its carries back on the host with the CPU chain's shapes and dtypes, and
+    no biquad kernel launched."""
+    from pipe_tpu_torch import parallel
+
+    stages, C, chunk, kind = _sharded_cases()[name]
+    n = 3 * chunk
+    if kind == "fm":
+        t = np.arange(n) / 48000.0
+        x = np.cos(2 * np.pi * 10000.0 * t + 2.0 * np.sin(2 * np.pi * 1000.0 * t))
+        x = (np.linspace(0.5, 1.0, C)[:, None] * x).astype(np.float32)
+    else:
+        x = (0.5 * np.random.default_rng(12).standard_normal((C, n))).astype(
+            np.float32)
+    mesh = parallel.make_mesh(1, 1)
+    on_card = parallel.ShardedChain(mesh, stages(), C, chunk, device=cuda)
+    on_cpu = parallel.ShardedChain(mesh, stages(), C, chunk, device="cpu")
+    kernels.reset_counts()
+    y, y_cpu = on_card.process(x), on_cpu.process(x)
+    assert sum(kernels.launch_counts().values()) == 0
+    assert y.shape == y_cpu.shape and np.isfinite(y).all()
+    assert snr_db(y_cpu, y) >= 100, snr_db(y_cpu, y)
+    for got, want in zip(on_card.global_carries(), on_cpu.global_carries()):
+        for k in (want if isinstance(want, dict) else ()):
+            assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+
+
+@pytest.mark.gpu
+def test_precision_knob_reaches_the_sharded_ols_delay_line(cuda):
+    """The partitioned OLS stage's multiply-accumulate goes through
+    ``config.einsum``: under ``'high'`` it is three products, so its bits
+    move, and it stays above 100 dB against float64 under every name. (Under
+    ``'default'`` cuBLAS may or may not take TF32 for this batched
+    matrix-vector product of depth K+1: on an H100 with torch 2.11 it read
+    the bits of ``'highest'``; no claim is made either way.) The single-FFT
+    regime and the recursive stages do not move with the knob."""
+    import scipy.signal
+
+    from pipe_tpu_torch import parallel
+
+    rng = np.random.default_rng(13)
+    ir = rng.standard_normal(6000) * np.exp(-np.arange(6000) / 1200.0)
+    x = rng.standard_normal((8, 4 * 1024)).astype(np.float32)
+    ref = scipy.signal.fftconvolve(x.astype(np.float64), ir[None, :],
+                                   axes=1)[:, : x.shape[1]]
+    mesh = parallel.make_mesh(1, 1)
+    db, fixed = {}, {}
+    for name in PRECISIONS:
+        with config.matmul_precision_scope(name):
+            db[name] = snr_db(ref, parallel.ShardedChain(
+                mesh, [parallel.OLSStage(ir)], 8, 1024, device=cuda).process(x))
+            fixed[name] = parallel.ShardedChain(
+                mesh, [parallel.OLSStage(ir[:300]),
+                       parallel.CompressorStage(-12.0, 3.0),
+                       parallel.DelayStage(300, feedback=0.5)], 8, 1024,
+                device=cuda).process(x)
+    assert db["highest"] >= 100 and db["high"] >= 100, db
+    assert db["high"] != db["highest"], db  # the knob reaches the delay line
+    assert np.isfinite(db["default"]) and db["default"] <= db["highest"] + 0.5, db
+    for name in ("high", "default"):
+        np.testing.assert_array_equal(fixed[name], fixed["highest"])

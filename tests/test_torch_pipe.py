@@ -4,6 +4,7 @@ surgery; reference ``pipe_test.go:82-189,461-639``) on ``pipe_tpu_torch``
 with its mock kit, and the ``examples/live_mixing_desk.py`` scenario run
 through both packages with one push and surgery schedule."""
 
+import inspect
 import threading
 import time
 
@@ -104,6 +105,28 @@ def test_unported_knobs_raise(knob):
     _, _, _, plain = run(False)
     assert fused.shape == plain.shape == (1, 8 * BLOCK)
     assert snr_db(plain, fused) > 110
+
+
+def test_host_sync_every_is_accepted_and_stored(pipe_timeout):
+    """The JAX package's ``host_sync_every`` (default 16) is a knob of the
+    port's ``Pipe`` too: stored, and without a mesh without effect; with a
+    mesh the Pipe goes on refusing."""
+    def line(sink):
+        return pipe_tpu_torch.Line(
+            source=mock.Source(limit=8 * BLOCK, channels=2).source(),
+            sink=sink.sink())
+
+    assert pipe_tpu_torch.Pipe(BLOCK, line(mock.Sink())).host_sync_every == 16
+    for cls in (pipe_tpu.Pipe, pipe_tpu_torch.Pipe):  # the same default
+        assert inspect.signature(cls).parameters["host_sync_every"].default == 16
+    sink = mock.Sink(discard=True)
+    p = pipe_tpu_torch.Pipe(BLOCK, line(sink), host_sync_every=3)
+    assert p.host_sync_every == 3
+    wait_pipe(p, pipe_timeout)
+    assert sink.messages == 8 and sink.samples == 8 * BLOCK
+    with pytest.raises(NotImplementedError):
+        pipe_tpu_torch.Pipe(BLOCK, line(mock.Sink()), mesh=object(),
+                            host_sync_every=3)
 
 
 def test_reset_restart(pipe_timeout):

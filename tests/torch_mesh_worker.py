@@ -139,11 +139,18 @@ def prefix_job(rank, t, vals):
 
 def halo_job(rank, t, x, carried, halo):
     """``halo_from_left``, ``last_shard`` and the channel ``psum`` on a
-    (2, t) mesh: returns what this rank got."""
+    (2, t) mesh, then ``all_to_all``, the cyclic shifts and
+    ``broadcast_last`` on its time axis: returns what this rank got, with
+    the mesh's counts after each group."""
     import torch
 
     from pipe_tpu_torch import parallel
-    from pipe_tpu_torch.parallel.halo import halo_from_left, last_shard, psum
+    from pipe_tpu_torch.parallel.halo import (
+        broadcast_last,
+        halo_from_left,
+        last_shard,
+        psum,
+    )
 
     m = parallel.make_mesh(2, t)
     if not m.member:
@@ -157,8 +164,20 @@ def halo_job(rank, t, x, carried, halo):
                               torch.tensor(carried[ci:ci + 1]))
         last = last_shard(xl[:, -halo:], parallel.TIME_AXIS)
         total = psum(xl, parallel.CH_AXIS)
-    return {"position": (ci, ti), "left": left.numpy(), "last": last.numpy(),
-            "psum": total.numpy(), "stats": {k: list(v) for k, v in m.stats.items()}}
+    out = {"position": (ci, ti), "left": left.numpy(), "last": last.numpy(),
+           "psum": total.numpy(),
+           "stats": {k: list(v) for k, v in m.stats.items()}}
+    m.reset_stats()
+    with parallel.mesh_scope(m):
+        # this rank's block cut into t slices: slice j goes to position j
+        out["all_to_all"] = m.all_to_all(
+            xl.reshape(1, t, n // t).transpose(0, 1), parallel.TIME_AXIS).numpy()
+        out["cyclic"] = {
+            hops: m.shift_right(xl, parallel.TIME_AXIS, hops, cyclic=True).numpy()
+            for hops in (1, t - 1, t, t + 1, 0)}
+        out["broadcast_last"] = broadcast_last(xl, parallel.TIME_AXIS).numpy()
+    out["stats2"] = {k: list(v) for k, v in m.stats.items()}
+    return out
 
 
 def hang_job(rank, seconds):
