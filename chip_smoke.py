@@ -135,7 +135,29 @@ the card (``cuda:0``), in phases, each printing one line:
     channels at chunks of 32768 (on one rank the delay is in its ladder
     regime, on four ranks in the wave-DAG), and an FM signal through
     ``IQMixStage -> FIRStage(127) -> FMDiscriminatorStage ->
-    ChannelizerStage(16)`` on 2 channels at chunks of 8192.
+    ChannelizerStage(16)`` on 2 channels at chunks of 8192;
+19. BASELINE config 5 through ``Pipe(mesh=)`` on a 1x1 mesh at full width:
+    phase 15's chain built from ``parallel.sharded`` ops as a ``Line``,
+    host-fed phase 15's samples in blocks of 301,056 frames, 4 blocks. The
+    output equals phase 15's ``ShardedChain`` output bit for bit (also
+    when the feed returns random packet sizes); ``iir_tiles`` launched
+    exactly 2 x 2 x 4 = 16 times and ``biquad_section`` never; a
+    ``Biquad.set_sos`` pushed ``at_block=2`` first changes output sample
+    2 x 327,680 exactly; with ``optimize=True`` (3 stages instead of 5)
+    the output is >= 110 dB from the plain run's (the fused FIR+resample
+    bank sums in another order); >= 100 dB against phase
+    15's float64 oracle; samples/s beside phase 15's, launches a block and
+    the device's idle share printed.
+
+Phase 16 also runs, in the same ranks and on both meshes, the same two
+``Line``s through ``Pipe(mesh=)``: the main path in blocks of 37,632 frames
+(plain, and with the ``set_sos`` pushed ``at_block=2`` on every rank) and
+config 4 as ``sharded.OLS -> sharded.Biquad`` in blocks of 32,768. On every
+rank the sink's output equals the four-rank chain's gathered output bit for
+bit and is identical across ranks, ``iir_tiles`` is launched as often as by
+the chain (16 and 28 a rank), and the collectives of the run, by name in
+calls and bytes, are those of the chain's run (its stages' plus the gather
+of the output, which both make once a block).
 
 ``python3 chip_smoke.py --four-ranks`` runs phase 16 alone (after phases 1,
 2 and the build), for a machine with four cards, where it takes NCCL.
@@ -1294,7 +1316,8 @@ def check_sharded_one_rank(port, dev) -> dict:
             f"iir_tiles launched {launches['iir_tiles']} times, expected {want}")
     require(launches["biquad_section"] == 0,
             "the sharded stage launched the one-section kernel")
-    f64_db = float(snr_db(slice_oracle(x), y))
+    oracle = slice_oracle(x)
+    f64_db = float(snr_db(oracle, y))
     require(f64_db >= 100, f"sharded 1x1 vs float64 oracle {f64_db:.1f} dB")
     y_stream, _ = run_slice(port, x)
     stream_db = float(snr_db(y_stream, y))
@@ -1302,7 +1325,158 @@ def check_sharded_one_rank(port, dev) -> dict:
     prof = device_profile(lambda: run_chain(chain, x[:, :CHUNK15], CHUNK15), 1)
     return {"launches": launches["iir_tiles"], "wall": wall,
             "rate": x.size / wall, "f64_db": f64_db, "stream_db": stream_db,
-            "comm": chain.last_comm, "profile": prof}
+            "comm": chain.last_comm, "profile": prof, "x": x, "y": y,
+            "oracle": oracle}
+
+
+def main_path_ops(parallel):
+    """The sharded main path (:func:`main_path_stages`) as ops of
+    ``parallel.sharded``, for a ``Line``."""
+    from pipe_tpu_torch import ops
+
+    sh, sos = parallel.sharded, eq_sos()
+    return [sh.FIR(ops.design_lowpass(255, 4000, SR_IN)),
+            sh.Resample(SR_OUT, SR_IN, 32),
+            sh.Biquad(sos[0]), sh.Biquad(sos[1]),
+            sh.Mix(np.ones((2, CHANNELS)) / CHANNELS)]
+
+
+def config4_ops(parallel):
+    """BASELINE config 4 (:func:`config4_stages`) as ops of
+    ``parallel.sharded``."""
+    sh = parallel.sharded
+    return [sh.OLS(config4_ir()), sh.Biquad(peaking_sos())]
+
+
+def packet_line(port, x, processors, out: list, seed: int):
+    """Like :func:`feed_line`, but every read returns a random number of
+    frames between 1 and what was asked for."""
+    pos, r = [0], np.random.default_rng(seed)
+
+    def feed(n):
+        if pos[0] >= x.shape[1]:
+            return None
+        take = min(int(r.integers(1, n + 1)), x.shape[1] - pos[0])
+        pos[0] += take
+        return x[:, pos[0] - take: pos[0]]
+
+    return port.Line(
+        source=lambda m, b: port.Source(
+            output=port.SignalProperties(sample_rate=float(SR_IN),
+                                         channels=x.shape[0]),
+            feed=feed),
+        processors=processors,
+        sink=lambda m, b, p: port.Sink(receive=out.append))
+
+
+def run_mesh_pipe(port, mesh, make_ops, x, block: int, push=None,
+                  optimize: bool = False, packets=None):
+    """Stream ``x`` through ``Pipe(block, Line(make_ops(...)), mesh=mesh)``
+    with a host feed. ``push``: ``(op index, at_block)``: the op's
+    ``set_sos`` to the -3 dB peaking section, delivered before the feed
+    opens. Returns the sink's output, the synchronized wall time of the
+    stream (the pipe's build left out) and the pipe."""
+    import torch
+
+    from pipe_tpu_torch import parallel
+
+    line_ops = make_ops(parallel)
+    out = []
+    gate = threading.Event()
+    procs = [o.processor() for o in line_ops]
+    line = (feed_line(port, x, procs, out, gate) if packets is None
+            else packet_line(port, x, procs, out, packets))
+    p = port.Pipe(block, line, mesh=mesh, optimize=optimize)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.start()
+    if push is not None:
+        p.push(line_ops[push[0]].set_sos(eq_sos(-3.0)[0]), at_block=push[1])
+        dest = p._executors[0].dest
+        wait_until(lambda: dest.pending_targets() == [push[1]],
+                   "the targeted push")
+    gate.set()
+    p.wait(600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return np.concatenate(out, axis=1), wall, p
+
+
+def check_mesh_pipe_one_rank(port, dev, s15) -> dict:
+    """Phase 19 (see the module docstring); ``s15`` is phase 15's result."""
+    from pipe_tpu_torch import kernels, parallel
+    from pipe_tpu_torch.signal import snr_db
+
+    x, y15 = s15["x"], s15["y"]
+    mesh = parallel.make_mesh(1, 1)
+    out_width = CHUNK15 * 160 // 147
+    run_mesh_pipe(port, mesh, main_path_ops, x[:, :CHUNK15], CHUNK15)  # warm-up
+    kernels.reset_counts()
+    y, wall, p = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK15)
+    launches = kernels.launch_counts()
+    require(p.routes[0].device == dev, "the mesh pipe's line is on the card")
+    require(p._agg == 1 and len(p.routes[0].processors) == 5, "5 stages, no aggregation")
+    require(y.shape == y15.shape and np.array_equal(y, y15),
+            "Pipe(mesh=1x1) equals phase 15's ShardedChain bit for bit")
+    want = 2 * 2 * CHUNKS15
+    require(launches["iir_tiles"] == want,
+            f"iir_tiles launched {launches['iir_tiles']} times, expected {want}")
+    require(launches["biquad_section"] == 0,
+            "a sharded Biquad launched the one-section kernel")
+    f64_db = float(snr_db(s15["oracle"], y))
+    require(f64_db >= 100, f"mesh pipe vs float64 oracle {f64_db:.1f} dB")
+
+    y_push, _, _ = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK15,
+                                 push=(2, 2))
+    first = first_change(y, y_push)
+    require(first == 2 * out_width,
+            f"the push's first changed sample {first} != {2 * out_width}")
+
+    kernels.reset_counts()
+    y_opt, wall_opt, p_opt = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK15,
+                                           optimize=True)
+    n_opt = len(p_opt.routes[0].processors)
+    require(n_opt < 5, f"optimize=True left {n_opt} stages")
+    opt_db = float("inf") if np.array_equal(y_opt, y) else float(snr_db(y, y_opt))
+    # the fused FIR+resample bank sums in another order: float32
+    # reassociation noise, not the bits of the plain run
+    require(opt_db >= 110, f"optimized vs plain mesh pipe {opt_db:.1f} dB")
+    require(kernels.launch_counts()["iir_tiles"] == want,
+            "the cascade launches iir_tiles as the two sections do")
+
+    y_pk, _, _ = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK15, packets=7)
+    require(np.array_equal(y_pk, y), "a short-read feed gives the same bits")
+
+    # the profile: one block through a pipe that has streamed before, as
+    # phase 15 profiles a chain that has (a section's first block computes
+    # its unit responses, ~1000 launches that no later block repeats)
+    pos = [0]
+
+    def feed(n):
+        if pos[0] >= CHUNK15:
+            return None
+        pos[0] += n
+        return x[:, pos[0] - n: pos[0]]
+
+    p_prof = port.Pipe(CHUNK15, port.Line(
+        source=lambda m, b: port.Source(
+            output=port.SignalProperties(sample_rate=float(SR_IN),
+                                         channels=CHANNELS), feed=feed),
+        processors=[o.processor() for o in main_path_ops(parallel)],
+        sink=lambda m, b, pr: port.Sink(receive=lambda a: None)), mesh=mesh)
+
+    def one_block():
+        pos[0] = 0
+        p_prof.start()
+        p_prof.wait(600)
+
+    one_block()
+    prof = device_profile(one_block, 1)
+    return {"launches": launches["iir_tiles"], "wall": wall,
+            "rate": x.size / wall, "f64_db": f64_db, "first": first,
+            "opt_db": opt_db, "opt_stages": n_opt, "opt_rate": x.size / wall_opt,
+            "profile": prof,
+            "idle": 1 - prof["device_ms"] / (1e3 * wall / CHUNKS15)}
 
 
 def input4():
@@ -1508,7 +1682,7 @@ def rank_main(rank: int, world: int, port_no: int, transport: str, out_dir: str)
     carries, and from rank 0 the gathered outputs) into ``out_dir``."""
     import torch
 
-    import_port()
+    port = import_port()
     from pipe_tpu_torch import kernels, parallel
     from pipe_tpu_torch.convert import tree_to_numpy
     from pipe_tpu_torch.tree import tree_flatten
@@ -1541,15 +1715,79 @@ def rank_main(rank: int, world: int, port_no: int, transport: str, out_dir: str)
         saved[f"{key}/y"] = y
         for i, leaf in enumerate(tree_flatten(tree_to_numpy(chain.carries))[0]):
             saved[f"{key}/carry{i}"] = leaf
-        rank_extra(rank, mesh, key, saved)
+        chain_comm = {k: list(v) for k, v in mesh.stats.items()}
+        rank_pipe(port, mesh, f"{key}/pipe", saved, main_path_ops, x, CHUNK16,
+                  y, chain_comm, push=(2, 2))
+        rank_extra(rank, mesh, key, saved, port)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **saved)
     parallel.shutdown()
 
 
-def rank_extra(rank: int, mesh, key: str, saved: dict) -> None:
+def rank_pipe(port, mesh, key: str, saved: dict, make_ops, x, block: int,
+              y_chain, chain_comm: dict, push=None) -> None:
+    """One rank's run of a ``Line`` of sharded ops through ``Pipe(mesh=)``,
+    beside the chain's run of the same stages (its gathered output
+    ``y_chain`` and the collectives ``chain_comm`` of that run): whether the
+    sink holds the chain's bits, the launch counts, the collectives by name,
+    the wall and the host seconds inside collectives; with ``push`` a second
+    run with the targeted retune: its digest and first changed sample."""
+    import hashlib
+
+    from pipe_tpu_torch import kernels
+
+    run_mesh_pipe(port, mesh, make_ops, x[:, :block], block)  # warm-up
+    mesh.reset_stats()
+    kernels.reset_counts()
+    y, wall, p = run_mesh_pipe(port, mesh, make_ops, x, block)
+    saved[f"{key}/equal"] = bool(y.shape == y_chain.shape
+                                 and np.array_equal(y, y_chain))
+    saved[f"{key}/launches"] = kernels.launch_counts()["iir_tiles"]
+    saved[f"{key}/sections"] = kernels.launch_counts()["biquad_section"]
+    saved[f"{key}/wall"] = wall
+    saved[f"{key}/comm"] = json.dumps({k: list(v) for k, v in mesh.stats.items()},
+                                      sort_keys=True)
+    saved[f"{key}/chain_comm"] = json.dumps(chain_comm, sort_keys=True)
+    saved[f"{key}/comm_seconds"] = sum(mesh.seconds.values())
+    if push is not None:
+        y_push, _, _ = run_mesh_pipe(port, mesh, make_ops, x, block, push=push)
+        saved[f"{key}/push_sha"] = hashlib.sha1(
+            np.ascontiguousarray(y_push).tobytes()).hexdigest()
+        saved[f"{key}/push_first"] = first_change(y, y_push)
+
+
+def check_rank_pipes(ranks, key: str, want_launches: int, n_samples: int,
+                     push_first=None) -> dict:
+    """What every rank saved in :func:`rank_pipe`, held to the contract."""
+    for i, r in enumerate(ranks):
+        require(bool(r[f"{key}/equal"]),
+                f"{key}, rank {i}: the sink's output differs from the chain's")
+        require(int(r[f"{key}/launches"]) == want_launches
+                and int(r[f"{key}/sections"]) == 0,
+                f"{key}, rank {i}: iir_tiles launched {r[f'{key}/launches']} "
+                f"times, expected {want_launches}")
+        require(str(r[f"{key}/comm"]) == str(r[f"{key}/chain_comm"]),
+                f"{key}, rank {i}: collectives {r[f'{key}/comm']}, the chain's "
+                f"run made {r[f'{key}/chain_comm']}")
+    out = {"launches": [int(r[f"{key}/launches"]) for r in ranks],
+           "comm": json.loads(str(ranks[0][f"{key}/comm"])),
+           "wall": max(float(r[f"{key}/wall"]) for r in ranks),
+           "comm_seconds": [float(r[f"{key}/comm_seconds"]) for r in ranks]}
+    out["rate"] = n_samples / out["wall"]
+    if push_first is not None:
+        require(len({str(r[f"{key}/push_sha"]) for r in ranks}) == 1,
+                f"{key}: the pushed run differs across ranks")
+        firsts = [int(r[f"{key}/push_first"]) for r in ranks]
+        require(firsts == [push_first] * len(ranks),
+                f"{key}: the push landed at {firsts}, expected {push_first}")
+        out["push_first"] = push_first
+    return out
+
+
+def rank_extra(rank: int, mesh, key: str, saved: dict, port) -> None:
     """One rank's share of phase 16's second half on ``mesh``: config 4's
-    chain and phase 18's two chains. Rank 0 keeps the gathered outputs, every
-    rank their digests, launch counts, collectives and carries."""
+    chain, the same line through ``Pipe(mesh=)``, and phase 18's two chains.
+    Rank 0 keeps the gathered outputs, every rank their digests, launch
+    counts, collectives and carries."""
     import hashlib
 
     from pipe_tpu_torch import kernels, parallel
@@ -1576,6 +1814,7 @@ def rank_extra(rank: int, mesh, key: str, saved: dict) -> None:
     saved[f"{key}/c4/ols_comm"] = sorted(chain.last_comm[0])
     saved[f"{key}/c4/a2a_run"] = list(mesh.stats.get("all_to_all", [0, 0]))
     saved[f"{key}/c4/comm_seconds"] = sum(mesh.seconds.values())
+    chain_comm = {k: list(v) for k, v in mesh.stats.items()}
     local = tree_to_numpy(chain.carries)
     saved[f"{key}/c4/zfdl_local_shape"] = local[0]["zfdl"].shape
     for name in ("x_tail", "s"):  # replicated over the time axis
@@ -1585,6 +1824,8 @@ def rank_extra(rank: int, mesh, key: str, saved: dict) -> None:
         saved[f"{key}/c4/zfdl"] = glob[0]["zfdl"]
     parts = step_parts_ms(chain, x, CHUNK4S, 6)  # collectives: every rank
     saved[f"{key}/c4/parts"] = [f"{k} {v:.3f}" for k, v in parts.items()]
+    rank_pipe(port, mesh, f"{key}/c4/pipe", saved, config4_ops, x, CHUNK4S, y,
+              chain_comm)
 
     for name, (make, (C, chunk, chunks)) in CHAINS18.items():
         stages, _, x18 = make()
@@ -1759,6 +2000,11 @@ def check_four_ranks(dev, count: int) -> dict:
                     require(np.array_equal(row[0][f"{key}/carry{i}"],
                                            other[f"{key}/carry{i}"]),
                             f"mesh {key}: carry {i} differs inside a channel row")
+        res.setdefault("pipes", {})[key] = {
+            "main": check_rank_pipes(ranks, f"{key}/pipe", want, x.size,
+                                     push_first=2 * (CHUNK16 * 160 // 147)),
+            "c4": check_rank_pipes(ranks, f"{key}/c4/pipe",
+                                   2 * (x4.shape[1] // CHUNK4S), C4 * N4)}
         wall = max(float(r[f"{key}/wall"]) for r in ranks)
         res["meshes"][key] = {"launches": launches, "db": db, "wall": wall,
                                "rate": x.size / wall, "carries": n_carries,
@@ -1803,6 +2049,27 @@ def say_four_ranks(s16: dict, card: str) -> None:
                     for n in CHAINS18)
                 + f"; the wave-DAG delay's shifts a chunk per rank "
                   f"{v['effects']['delay_shifts']}; on {card}")
+    for k, v in s16["pipes"].items():
+        m, c4 = v["main"], v["c4"]
+        say(16, f"mesh {k}, the same lines through Pipe(mesh=) on every rank: "
+                f"main path in blocks of {CHUNK16}: the sink equals the chain's "
+                f"gathered output bit for bit on all 4 ranks, iir_tiles launches "
+                f"per rank {m['launches']}, collectives of the run [calls, "
+                f"bytes] {m['comm']} (the chain's run made the same, its "
+                f"gather included), {m['wall']:.4f} s wall = {m['rate']:.4g} "
+                f"samples/s (the chain {s16['meshes'][k]['rate']:.4g}), host "
+                "seconds inside collectives per rank "
+                + "/".join(f"{t:.4f}" for t in m["comm_seconds"])
+                + f", the set_sos pushed at_block=2 first changes sample "
+                  f"{m['push_first']} on every rank; config 4 (sharded.OLS -> "
+                  f"sharded.Biquad) in blocks of {CHUNK4S}: equal to the chain "
+                  f"bit for bit, iir_tiles launches per rank {c4['launches']}, "
+                  f"collectives {c4['comm']}, {c4['wall']:.4f} s wall = "
+                  f"{c4['rate']:.4g} samples/s (the chain "
+                  f"{s16['extra'][k]['c4']['rate']:.4g}), host seconds inside "
+                  "collectives per rank "
+                + "/".join(f"{t:.4f}" for t in c4["comm_seconds"])
+                + f"; on {card}")
 
 
 def main(only_four_ranks: bool = False) -> None:
@@ -2044,6 +2311,24 @@ def main(only_four_ranks: bool = False) -> None:
         f"{k} {v['out']}: {v['db']:.1f} dB, {v['wall']:.4f} s wall = "
         f"{v['rate']:.4g} samples/s" for k, v in s18.items()) + f"; on {card}")
 
+    s19 = check_mesh_pipe_one_rank(port, dev, s15)
+    p19 = s19["profile"]
+    say(19, f"config 5 through Pipe(mesh=1x1), {CHANNELS} ch, sharded.FIR(255) "
+            f"-> Resample -> 2 x Biquad -> Mix, host-fed, {CHUNKS15} blocks of "
+            f"{CHUNK15}: equal to phase 15's ShardedChain bit for bit (also fed "
+            f"random packet sizes), iir_tiles launches {s19['launches']} "
+            f"({s19['launches'] // CHUNKS15} a block), biquad_section 0, vs "
+            f"float64 {s19['f64_db']:.1f} dB, set_sos pushed at_block=2 first "
+            f"changes sample {s19['first']}, optimize=True: "
+            f"{s19['opt_stages']} stages, {s19['opt_db']:.1f} dB from the plain "
+            f"run, {s19['opt_rate']:.4g} samples/s; {s19['wall']:.4f} s wall = "
+            f"{s19['rate']:.4g} samples/s (phase 15's chain, fed from the host "
+            f"too: {s15['rate']:.4g}); profile of one block: device "
+            f"{p19['device_ms']:.3f} ms, "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in p19["ms"].items())
+            + f", {p19['launches_per_block']:.0f} launches, device idle "
+              f"{100 * s19['idle']:.1f} % of the unprofiled wall a block; on {card}")
+
     main_shape = KERNEL_SHAPES[-1]
     section_paths = {"run (phase 7)": launches["biquad_section"],
                      "Pipe line A (phase 8)": pres["launches"]["pipe-exec-line0"],
@@ -2058,6 +2343,12 @@ def main(only_four_ranks: bool = False) -> None:
     tiles_paths.update({f"ShardedChain config 4 {k}, each of 4 ranks (phase 16)":
                         v["c4"]["launches"][0] for k, v in s16["extra"].items()})
     tiles_paths["ShardedChain config 4 1x1 (phase 17)"] = s17["launches"]
+    tiles_paths["Pipe(mesh=1x1) config 5 (phase 19)"] = s19["launches"]
+    for k, v in s16["pipes"].items():
+        tiles_paths[f"Pipe(mesh={k}) main path, each of 4 ranks (phase 16)"] = (
+            v["main"]["launches"][0])
+        tiles_paths[f"Pipe(mesh={k}) config 4, each of 4 ranks (phase 16)"] = (
+            v["c4"]["launches"][0])
 
     def kernel_entry(name, by_path, results):
         r = results[main_shape]

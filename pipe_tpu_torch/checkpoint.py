@@ -18,6 +18,13 @@ leaf (a stream counter such as the resampler's phase offset) is stored as a
 0-d int32 array, the JAX package's dtype, and restored as an int.
 ``restore`` unflattens against the target pipe's own trees and is
 all-or-nothing.
+
+A mesh pipe's snapshot holds GLOBAL arrays, as the JAX package's does: on a
+mesh larger than 1x1 a component that declares ``state_spec`` /
+``param_spec`` is gathered (a collective: every rank calls ``snapshot`` at
+the same point, after ``wait``) and ``restore`` keeps each rank's block. So
+a snapshot taken on a 2x4 mesh restores on 1x1 and in the JAX package, where
+the global shapes agree.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from pipe_tpu_torch.convert import (
+    component_tree_from_numpy,
+    component_tree_to_numpy,
+)
 from pipe_tpu_torch.tree import tree_flatten, tree_unflatten
 
 
@@ -55,40 +66,24 @@ def load(path: str) -> Checkpoint:
 def _iter_components(pipe):
     for r, route in enumerate(pipe.routes):
         for c, comp in enumerate(route.components()):
-            yield r, c, comp
-
-
-def _to_host(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    if isinstance(leaf, (int, np.integer)) and not isinstance(leaf, bool):
-        return np.asarray(leaf, np.int32)
-    return np.asarray(leaf)
+            yield r, c, route, comp
 
 
 def snapshot(pipe) -> Checkpoint:
-    """Capture every component's state and params as host numpy. Call
-    while the pipe is not running (before ``start`` or after ``wait``):
-    mid-flight state is owned by the executor threads."""
+    """Capture every component's state and params as host numpy (global
+    arrays on a mesh). Call while the pipe is not running (before ``start``
+    or after ``wait``): mid-flight state is owned by the executor threads,
+    and on a mesh the gather must not cross a sweep's collectives."""
     if getattr(pipe, "_running", False):
         raise RuntimeError("snapshot requires a stopped pipe")
     leaves: Dict[str, np.ndarray] = {}
-    for r, c, comp in _iter_components(pipe):
-        for kind, tree in (("state", comp.state), ("params", comp.params)):
-            flat, _ = tree_flatten(tree)
+    for r, c, route, comp in _iter_components(pipe):
+        for kind in ("state", "params"):
+            flat, _ = tree_flatten(
+                component_tree_to_numpy(pipe, route, comp, kind))
             for i, leaf in enumerate(flat):
-                leaves[f"r{r}/c{c}/{kind}/{i}"] = _to_host(leaf)
+                leaves[f"r{r}/c{c}/{kind}/{i}"] = np.asarray(leaf)
     return Checkpoint(leaves=leaves, block_size=pipe.block_size)
-
-
-def _restored(leaf, stored: np.ndarray):
-    """``stored`` in the form of the pipe's ``leaf``: a tensor of its dtype
-    on its device, or a host int."""
-    if isinstance(leaf, torch.Tensor):
-        return torch.tensor(stored, dtype=leaf.dtype, device=leaf.device)
-    if isinstance(leaf, (int, np.integer)) and not isinstance(leaf, bool):
-        return int(stored)
-    return type(leaf)(stored) if np.ndim(stored) == 0 else stored
 
 
 def restore(pipe, ckpt: Checkpoint) -> None:
@@ -106,32 +101,23 @@ def restore(pipe, ckpt: Checkpoint) -> None:
     # validate everything first: restore is all-or-nothing
     plan: List = []
     seen = set()
-    for r, c, comp in _iter_components(pipe):
-        for kind, tree in (("state", comp.state), ("params", comp.params)):
-            flat, treedef = tree_flatten(tree)
-            new_flat = []
-            for i, leaf in enumerate(flat):
+    for r, c, route, comp in _iter_components(pipe):
+        for kind in ("state", "params"):
+            flat, treedef = tree_flatten(getattr(comp, kind))
+            stored = []
+            for i in range(len(flat)):
                 key = f"r{r}/c{c}/{kind}/{i}"
                 if key not in ckpt.leaves:
                     raise ValueError(f"checkpoint missing leaf {key}")
                 seen.add(key)
-                stored = ckpt.leaves[key]
-                want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
-                    else np.shape(leaf)
-                if tuple(stored.shape) != tuple(want):
-                    raise ValueError(
-                        f"leaf {key}: checkpoint shape {stored.shape} != "
-                        f"pipe shape {want}"
-                    )
-                new_flat.append(_restored(leaf, stored))
-            plan.append((comp, kind, treedef, new_flat))
+                stored.append(ckpt.leaves[key])
+            plan.append((comp, kind, component_tree_from_numpy(
+                pipe, route, comp, kind, tree_unflatten(treedef, stored),
+                f"leaf r{r}/c{c}/{kind}")))
     extra = set(ckpt.leaves) - seen
     if extra:
         raise ValueError(f"checkpoint has extra leaves: {sorted(extra)[:5]}")
 
-    for comp, kind, treedef, new_flat in plan:
-        tree = tree_unflatten(treedef, new_flat)
-        if kind == "state":
-            comp.state = tree
-        else:
-            comp.params = tree
+    for comp, kind, tree in plan:
+        setattr(comp, kind, tree)
+

@@ -130,6 +130,46 @@ def allocate_sink(alloc: SinkAllocatorFunc, ctx: mutable.Context,
     return sink
 
 
+def make_routes_aggregated(lines: Sequence[Line], block_size: int, mesh,
+                           max_agg: int = 4096, device=None):
+    """Bind lines for a mesh pipe at the smallest BLOCK AGGREGATION factor
+    ``a`` whose internal block ``a * block_size`` satisfies every stage's
+    shape rules (time-axis divisibility, halo <= n_local, resampler phase,
+    spectral grids): the any-block-size contract of the reference
+    (``pipe.go:90``). One dispatch then advances ``a`` user blocks;
+    chunking is stream-transparent, so the output is sample-exact for ANY
+    block size, at the cost of a-block dispatch granularity (mutations land
+    on the a-block grid). Called inside ``mesh_scope(mesh)``.
+
+    Returns ``(routes, a)``. Only an allocation failure caused by a
+    :class:`~pipe_tpu_torch.errors.ShapeConstraintError` is retried at a
+    larger ``a``; anything else propagates at once. The shape rules depend
+    on global shapes only, so every rank of the mesh picks the same ``a``.
+    """
+    from pipe_tpu_torch.errors import ShapeConstraintError
+    from pipe_tpu_torch.parallel.mesh import TIME_AXIS
+
+    t_shards = mesh.shape[TIME_AXIS]
+    last_err: Optional[Exception] = None
+    for a in range(1, max_agg + 1):
+        if (a * block_size) % t_shards:
+            continue
+        try:
+            routes = [make_route(line, a * block_size, device)
+                      for line in lines]
+            return routes, a
+        except AllocationError as e:
+            if isinstance(e.__cause__, ShapeConstraintError):
+                last_err = e
+                continue
+            raise
+    raise AllocationError(
+        f"no block aggregation factor up to {max_agg} satisfies every "
+        f"stage's shape rules for block_size={block_size} on this mesh "
+        f"(last failure: {last_err})"
+    ) from last_err
+
+
 def make_route(line: Line, block_size: int, device=None) -> Route:
     """Run the allocators in order, threading signal properties and block
     width (``line.go:62-90``). Raises :class:`AllocationError` naming the

@@ -27,6 +27,8 @@ from pipe_tpu_torch.components import Processor as ProcessorComponent
 from pipe_tpu_torch.components import Sink as SinkComponent
 from pipe_tpu_torch.components import Source as SourceComponent
 from pipe_tpu_torch.components import param_tensor
+from pipe_tpu_torch.parallel.mesh import CH_AXIS, TIME_AXIS, P
+from pipe_tpu_torch.parallel.meshctx import current_mesh
 from pipe_tpu_torch.signal import Signal, SignalProperties
 
 
@@ -120,6 +122,16 @@ class Source(_MockBase):
                 raise self.error_on_make
             self.context = mctx
             limit, channels = self.limit, self.channels
+            # On a mesh-placed pipe every rank generates its LOCAL block
+            # (the constant value is the same everywhere; the counters are
+            # global and replicated). A channel count that does not divide
+            # the channel axis pads up: the executor zeroes the pad rows
+            # and the sink slices them off.
+            mesh = current_mesh()
+            gen_channels, gen_block = channels, block_size
+            if mesh is not None:
+                gen_channels = -(-channels // mesh.shape[CH_AXIS])
+                gen_block = block_size // mesh.shape[TIME_AXIS]
 
             def step(state, params):
                 produced = state["produced"]
@@ -130,7 +142,7 @@ class Source(_MockBase):
                     eof = read <= 0
                     read = max(read, 0)
                 value = params["value"]
-                data = value.expand(channels, block_size).contiguous()
+                data = value.expand(gen_channels, gen_block).contiguous()
                 new_state = {
                     "produced": produced + read,
                     "messages": state["messages"] + (1 if read > 0 else 0),
@@ -155,6 +167,9 @@ class Source(_MockBase):
                 flush=self.hooks.flush,
                 host_pre=host_pre,
             )
+            if mesh is not None:
+                comp.state_spec = {"produced": P(), "messages": P()}
+                comp.param_spec = {"value": P()}
             self._component = comp
             return comp
 

@@ -2,8 +2,12 @@
 stages that are mathematically one operator.
 
 The PyTorch counterpart of :mod:`pipe_tpu.optimize`, with the same rules in
-the same order (the sharded backend is not ported, so every op is a
-streaming op and :func:`_is_sharded` is always False):
+the same order. A rule fires only when both parties are on the same
+backend: streaming ops (:mod:`pipe_tpu_torch.ops`) fuse into
+:mod:`pipe_tpu_torch.ops.fused`, sharded ops
+(:mod:`pipe_tpu_torch.parallel.sharded`) into the sharded ``BiquadCascade``,
+``FIRCascade``, ``FIRResample``, ``FIRGain``, ``MixGain`` and ``OLSGain``;
+a sharded and a streaming op never fuse.
 
 - **Biquad cascade**: a run of >= 2 adjacent Biquads with matching
   ``refine`` / ``precision`` becomes one :class:`~pipe_tpu_torch.ops.fused.
@@ -57,14 +61,32 @@ def _tag(proc):
 
 
 def _is_sharded(obj) -> bool:
-    """Whether ``obj`` is an op of the sharded backend (not ported yet:
-    every op is a streaming op). Rules fuse only within one backend."""
-    return False
+    """Whether ``obj`` is an op of the sharded backend. Rules fuse only
+    within one backend."""
+    from pipe_tpu_torch.parallel.components import ShardedOp
+
+    return isinstance(obj, ShardedOp)
+
+
+def _sharded():
+    from pipe_tpu_torch.parallel import sharded
+
+    return sharded
 
 
 def _bq_key(obj) -> tuple:
     """(backend, refine, extended): biquads fuse only within one key."""
-    return _is_sharded(obj), obj._refine, obj._extended
+    extended = (obj._precision == "extended" if _is_sharded(obj)
+                else obj._extended)
+    return _is_sharded(obj), obj._refine, extended
+
+
+def _gain_value(gain_obj):
+    return gain_obj._gain if _is_sharded(gain_obj) else gain_obj._init_gain
+
+
+def _fir_taps(fir_obj):
+    return fir_obj._taps if _is_sharded(fir_obj) else fir_obj._init_taps
 
 
 def _pair(procs: List, i: int):
@@ -94,7 +116,7 @@ def _fuse_biquad_run(procs: List, i: int) -> Optional[tuple]:
         j += 1
     if len(run) < 2:
         return None
-    fused = BiquadCascade(run)
+    fused = (_sharded().BiquadCascade(run) if key[0] else BiquadCascade(run))
     for p in run:
         p._delegate = fused
     return fused, j - i
@@ -105,8 +127,12 @@ def _fuse_fir_resample(procs: List, i: int) -> Optional[tuple]:
     if pair is None or (pair[0][0], pair[1][0]) != ("fir", "resample"):
         return None
     fir_obj, rs_obj = pair[0][1], pair[1][1]
-    if fir_obj._init_taps.ndim != 1:
+    if _fir_taps(fir_obj).ndim != 1:
         return None
+    if _is_sharded(fir_obj):
+        fused = _sharded().FIRResample(fir_obj._taps, *rs_obj._args)
+        fir_obj._delegate = fused
+        return fused, 2
     fused = FIRResampler(fir_obj._init_taps, rs_obj.up, rs_obj.down,
                          taps_per_phase=rs_obj.taps_per_phase)
     fir_obj._delegate = fused
@@ -122,7 +148,7 @@ def _resampler_takes(procs: List, j: int, fir_obj) -> bool:
     t = _tag(procs[j])
     return (t is not None and t[0] == "resample"
             and _is_sharded(t[1]) == _is_sharded(fir_obj)
-            and fir_obj._init_taps.ndim == 1)
+            and _fir_taps(fir_obj).ndim == 1)
 
 
 def _fuse_gain_fir(procs: List, i: int) -> Optional[tuple]:
@@ -142,7 +168,8 @@ def _fuse_gain_fir(procs: List, i: int) -> Optional[tuple]:
         fir_obj, gain_obj = a, b
     else:
         return None
-    fused = FIRWithGain(fir_obj._init_taps, gain_obj._init_gain)
+    cls = _sharded().FIRGain if _is_sharded(fir_obj) else FIRWithGain
+    fused = cls(_fir_taps(fir_obj), _gain_value(gain_obj))
     gain_obj._delegate = fused
     fir_obj._delegate = fused
     return fused, 2
@@ -168,7 +195,7 @@ def _fuse_fir_run(procs: List, i: int) -> Optional[tuple]:
         j -= 1
     if len(run) < 2:
         return None
-    fused = FIRCascade(run)
+    fused = _sharded().FIRCascade(run) if backend else FIRCascade(run)
     for part in run:
         part._delegate = fused.handle_for(part)  # per-slot retunes
     return fused, j - i
@@ -187,7 +214,8 @@ def _fuse_gain_ols(procs: List, i: int) -> Optional[tuple]:
         ols_obj, gain_obj = a, b
     else:
         return None
-    fused = OLSWithGain(ols_obj._ir, gain_obj._init_gain)
+    cls = _sharded().OLSGain if _is_sharded(ols_obj) else OLSWithGain
+    fused = cls(ols_obj._ir, _gain_value(gain_obj))
     gain_obj._delegate = fused
     ols_obj._delegate = fused
     return fused, 2
@@ -206,7 +234,10 @@ def _fuse_gain_mix(procs: List, i: int) -> Optional[tuple]:
         mix_obj, gain_obj, side = a, b, "out"
     else:
         return None
-    fused = MixWithGain(mix_obj._init_matrix, gain_obj._init_gain, side)
+    if _is_sharded(mix_obj):
+        fused = _sharded().MixGain(mix_obj._m, _gain_value(gain_obj), side)
+    else:
+        fused = MixWithGain(mix_obj._init_matrix, gain_obj._init_gain, side)
     gain_obj._delegate = fused
     mix_obj._delegate = fused
     return fused, 2

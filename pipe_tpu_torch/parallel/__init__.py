@@ -32,10 +32,14 @@ line-for-line counterpart of the JAX package's. What follows from it:
   global shapes only, so all ranks raise alike; groups carry a timeout, so
   a rank whose peer died raises instead of hanging.
 
-Ported: ``mesh``, ``meshctx``, ``distributed``, ``halo`` and all of
-``chain``: the ``ShardedChain`` with the 22 stages of the JAX package.
-``components`` (``sharded``), ``hostsync`` and the mesh ``Pipe`` are not
-ported, and ``Pipe(mesh=...)``/``run(mesh=...)`` go on refusing.
+Ported: ``mesh``, ``meshctx``, ``distributed``, ``halo``, all of ``chain``
+(the ``ShardedChain`` with the 22 stages of the JAX package) and
+``components``, exported as ``sharded``: the 22 op classes that put those
+stages behind ``Line``/``Pipe(mesh=...)``/``run(mesh=...)``. Not ported:
+``hostsync`` (health rounds, abort padding, the agreement that lands an
+untargeted push on the same block on every rank), so on a mesh larger than
+1x1 a push must carry ``at_block``, live surgery is refused, and a rank
+that fails alone costs its peers the group timeout.
 """
 
 from pipe_tpu_torch.parallel.mesh import make_mesh, Mesh, P, CH_AXIS, TIME_AXIS
@@ -47,6 +51,7 @@ from pipe_tpu_torch.parallel.distributed import (
     shard_host_chunk,
 )
 from pipe_tpu_torch.parallel.meshctx import mesh_scope, current_mesh
+from pipe_tpu_torch.parallel import components as sharded
 from pipe_tpu_torch.parallel.chain import (
     ShardedChain,
     Stage,
@@ -88,6 +93,7 @@ __all__ = [
     "last_shard",
     "mesh_scope",
     "current_mesh",
+    "sharded",
     "ShardedChain",
     "Stage",
     "GainStage",

@@ -1622,6 +1622,46 @@ def _zip_spec(tree, spec_tree):
     return leaves, specs, treedef
 
 
+def localize(mesh: Mesh, device, tree, spec_tree):
+    """This rank's block of every leaf of a tree of global host arrays, as
+    float32 tensors on ``device``; a 0-d integer leaf (a stream counter) as
+    a host ``int``. A 0-d leaf stays 0-d."""
+    leaves, specs, treedef = _zip_spec(tree, spec_tree)
+    local = []
+    for l, s in zip(leaves, specs):
+        a = np.asarray(l)
+        if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
+            local.append(int(a))
+            continue
+        # np.array keeps a 0-d leaf 0-d (ascontiguousarray would not)
+        block = mesh.local_block(a, s)
+        local.append(torch.tensor(
+            np.array(block, dtype=np.float32, order="C"), device=device))
+    return tree_unflatten(treedef, local)
+
+
+def globalize(mesh: Mesh, device, tree, spec_tree):
+    """The global host arrays of a tree of this rank's tensors (a
+    collective over every axis a leaf is sharded on; the other axes hold
+    replicas). A host ``int`` comes back as an int32 scalar. ``device`` is
+    where the transport takes its tensors from (a leaf elsewhere is moved
+    there first)."""
+    leaves, specs, treedef = _zip_spec(tree, spec_tree)
+    out = []
+    for l, s in zip(leaves, specs):
+        if isinstance(l, int):
+            out.append(np.asarray(l, np.int32))
+            continue
+        l = l.to(device)
+        for dim, axis in enumerate(s.axes):
+            if axis is None:
+                continue
+            parts = mesh.all_gather(l, axis)
+            l = torch.cat(list(parts), dim=dim)
+        out.append(l.cpu().numpy())
+    return tree_unflatten(treedef, out)
+
+
 class ShardedChain:
     """Compose stages into one chunk step over a mesh, with carried stream
     state. Every rank of the mesh builds the same chain and calls the same
@@ -1710,40 +1750,10 @@ class ShardedChain:
     # -- global <-> local ----------------------------------------------------
 
     def _localize(self, tree, spec_tree):
-        """This rank's block of every leaf of a tree of global host arrays,
-        as float32 tensors on the chain's device; a 0-d integer leaf (a
-        stream counter) as a host ``int``."""
-        leaves, specs, treedef = _zip_spec(tree, spec_tree)
-        local = []
-        for l, s in zip(leaves, specs):
-            a = np.asarray(l)
-            if a.ndim == 0 and np.issubdtype(a.dtype, np.integer):
-                local.append(int(a))
-                continue
-            # np.array keeps a 0-d leaf 0-d (ascontiguousarray would not)
-            block = self.mesh.local_block(a, s)
-            local.append(torch.tensor(
-                np.array(block, dtype=np.float32, order="C"),
-                device=self.device))
-        return tree_unflatten(treedef, local)
+        return localize(self.mesh, self.device, tree, spec_tree)
 
     def _globalize(self, tree, spec_tree):
-        """The global host arrays of a tree of local tensors (a collective
-        over every axis a leaf is sharded on; the other axes hold
-        replicas). A host ``int`` comes back as an int32 scalar."""
-        leaves, specs, treedef = _zip_spec(tree, spec_tree)
-        out = []
-        for l, s in zip(leaves, specs):
-            if isinstance(l, int):
-                out.append(np.asarray(l, np.int32))
-                continue
-            for dim, axis in enumerate(s.axes):
-                if axis is None:
-                    continue
-                parts = self.mesh.all_gather(l, axis)
-                l = torch.cat(list(parts), dim=dim)
-            out.append(l.cpu().numpy())
-        return tree_unflatten(treedef, out)
+        return globalize(self.mesh, self.device, tree, spec_tree)
 
     def params(self):
         """Every stage's parameters as this rank's tensors, read from

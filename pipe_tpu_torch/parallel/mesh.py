@@ -155,9 +155,15 @@ class Mesh:
             return h.to(like.device, non_blocking=True)
         return h
 
-    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis: str,
+                   to_host: bool = False) -> torch.Tensor:
         """Every rank's ``x`` along ``axis``, stacked on a new dimension 0 in
-        axis order."""
+        axis order. ``to_host`` says the caller wants the result on the
+        host next (a sink's output): the ``gloo+host`` transport then
+        returns the pinned host buffer that gloo filled instead of copying
+        it back to the card; the other transports return what they always
+        do (``gloo`` a CPU tensor, ``nccl`` a tensor on the card, as does an
+        axis of size 1) and the caller moves it."""
         n = self.shape[axis]
         if n == 1:
             return x[None]
@@ -168,6 +174,8 @@ class Mesh:
         # flat views: gloo takes the concatenated layout only
         dist.all_gather_into_tensor(out.view(-1), src.view(-1), group=group)
         self._count("all_gather", out.numel() * out.element_size(), started)
+        if to_host and self.transport == "gloo+host":
+            return out
         return self._stage_in(out, x)
 
     def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:

@@ -7,12 +7,12 @@ from typing import Optional
 
 from pipe_tpu_torch import mutable
 from pipe_tpu_torch.errors import ErrorRun, RunError, StartError
-from pipe_tpu_torch.graph import Line, make_route
+from pipe_tpu_torch.graph import Line, make_route, make_routes_aggregated
+from pipe_tpu_torch.parallel.meshctx import mesh_scope
 from pipe_tpu_torch.runtime.executor import (
     EOF,
     LineExecutor,
     MultiLineExecutor,
-    refuse_unported,
 )
 
 
@@ -77,26 +77,34 @@ def run(block_size: int, *lines: Line, stats=None, lookahead: int = 1,
     unless targeted with ``at_block``). ``optimize=True`` runs the fusion
     fixpoint (:func:`pipe_tpu_torch.optimize.fuse`) on every line before
     building; retunes through the original op objects keep landing.
-    ``mesh`` keeps the JAX package's signature and raises
-    ``NotImplementedError``.
+    ``mesh`` (:func:`pipe_tpu_torch.parallel.make_mesh`) runs the lines
+    sharded over it, as :class:`~pipe_tpu_torch.runtime.pipe.Pipe` does:
+    every rank of the mesh calls ``run`` with the same lines and the same
+    stream, ``block_size`` is the global block, and a block size that does
+    not fit the mesh is aggregated.
     """
-    refuse_unported(mesh=mesh)
     if optimize:
         from pipe_tpu_torch import optimize as _optimize
 
         lines = tuple(_optimize.fuse(line) for line in lines)
     mctx = mutable.mutable()
     mle = MultiLineExecutor(context=mctx)
-    for i, line in enumerate(lines):
-        bound = Line(source=line.source, processors=line.processors,
-                     sink=line.sink, context=mctx)
-        route = make_route(bound, block_size, device)
+    bound = [Line(source=line.source, processors=line.processors,
+                  sink=line.sink, context=mctx) for line in lines]
+    with mesh_scope(mesh):
+        if mesh is None:
+            routes = [make_route(b, block_size, device) for b in bound]
+        else:
+            routes, agg = make_routes_aggregated(bound, block_size, mesh,
+                                                 device=device)
+            block_size *= agg
+    for i, route in enumerate(routes):
         ls = None
         if stats is not None:
             ls = stats.line(f"line{i}", block_size,
                             route.source.output.channels)
-        mle.executors.append(
-            LineExecutor(route, block_size, stats=ls, lookahead=lookahead,
-                         batch_blocks=batch_blocks)
-        )
+        le = LineExecutor(route, block_size, stats=ls, lookahead=lookahead,
+                          batch_blocks=batch_blocks, mesh=mesh)
+        le.cancel = cancel
+        mle.executors.append(le)
     run_executor(mle, cancel=cancel)

@@ -45,12 +45,41 @@ reading the old one.
 driver thread, flushing and splicing out lines as they hit EOF (reference
 ``run.go:113-132``).
 
-Not ported yet: ``mesh`` (sharded lines, mesh re-chunking of short reads,
-multi-host ``dispatch_noop_to`` padding).
+On a mesh (``mesh=``, :mod:`pipe_tpu_torch.parallel`) every rank of the
+mesh runs the same executor over the same stream, one process per shard,
+and each sweep runs under ``mesh_scope(mesh)``, bound on the executor's own
+thread. The components hold this rank's block of their state and params
+(:mod:`pipe_tpu_torch.parallel.components`). What the executor adds:
+
+- a host-fed block is cut to this rank's ``(c_local, n_local)`` block on
+  the host, into the pinned staging buffer, and only that is uploaded;
+  channel rows pad with zeros up to the channel-axis multiple and the
+  frames past the valid count are zero (the EOF / partial-final-chunk
+  mask). A device source generates its local block; the executor zeroes
+  its pad rows and the frames past ``frames``;
+- short reads are re-chunked on the host (:meth:`_feed_full_block`): the
+  sharded stages advance their carries by whole local chunks, so a partial
+  block must be the stream's last. A zero-length read backs off briefly
+  and is asked again; a cancelled run stops asking;
+- on a mesh larger than 1x1 a sink with ``receive`` gets the WHOLE output
+  on every rank: an ``all_gather`` over the time axis, then over the
+  channel axis unless a processor reduced the channels. The gather is
+  made inside the sweep, in stream order, never at resolution: every
+  rank enqueues the same collectives in the same order. Over gloo (the
+  ``gloo`` and ``gloo+host`` transports) a collective waits for the block's
+  work, so ``lookahead`` overlaps nothing there; over NCCL it is enqueued
+  on the stream like any other kernel;
+- :meth:`dispatch_noop_to` sweeps zero blocks with the same collectives,
+  commits no state and delivers nothing (the exit-path padding of the JAX
+  package's multi-host protocol).
+
+How many sweeps a rank makes is decided by the stream and the targeted
+pushes alone, never by a clock or an event query, so the ranks agree.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -59,7 +88,9 @@ import torch
 from pipe_tpu_torch import mutable
 from pipe_tpu_torch.errors import FlushError, StartError, ret_exec_errors
 from pipe_tpu_torch.graph import Route
-from pipe_tpu_torch.signal import Signal
+from pipe_tpu_torch.parallel.mesh import CH_AXIS, TIME_AXIS
+from pipe_tpu_torch.parallel.meshctx import mesh_scope
+from pipe_tpu_torch.signal import Signal, zero_past
 from pipe_tpu_torch.tree import tree_flatten, tree_unflatten
 
 
@@ -71,14 +102,6 @@ class _EOF:
 
 
 EOF = _EOF()
-
-
-def refuse_unported(mesh=None) -> None:
-    """Raise ``NotImplementedError`` for the runtime knob the port does not
-    have yet: a device mesh."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh={mesh!r} is not ported yet (only None)")
 
 
 def _gate(eof: torch.Tensor, new_tree, old_tree):
@@ -178,13 +201,33 @@ class LineExecutor:
     ``batch_blocks`` blocks) per :meth:`execute` call, on the route's
     device. Keeps the live component states and params; live
     ``insert_processor`` splices at a block boundary, so no sample is lost
-    or duplicated."""
+    or duplicated. With a ``mesh`` the line is this rank's shard of a
+    sharded line (see the module docstring) and ``block_size`` the GLOBAL
+    frames per dispatch."""
+
+    #: pause between two asks after a zero-length read of a mesh feed
+    EMPTY_READ_BACKOFF_S = 0.001
 
     def __init__(self, route: Route, block_size: int, stats=None,
                  lookahead: int = 1, batch_blocks: int = 1, mesh=None):
-        refuse_unported(mesh=mesh)
         self.route = route
         self.block_size = block_size
+        self.mesh = mesh
+        if mesh is not None and not mesh.member:
+            raise ValueError(
+                f"rank {mesh.rank} lies outside the mesh and runs no line")
+        # this rank's block of the fed signal: rows [r0, r0 + c_local) of
+        # the channel-padded block, frames [f0, f0 + n_local)
+        c_user = route.source.output.channels
+        ch = 1 if mesh is None else mesh.shape[CH_AXIS]
+        t = 1 if mesh is None else mesh.shape[TIME_AXIS]
+        self._multi = ch * t > 1
+        self._c_local = -(-c_user // ch)
+        self._n_local = block_size // t
+        self._r0 = 0 if mesh is None else mesh.axis_index(CH_AXIS) * self._c_local
+        self._f0 = 0 if mesh is None else mesh.axis_index(TIME_AXIS) * self._n_local
+        # set by the runtime: an Event that says the run was cancelled
+        self.cancel = None
         self.device = route.device
         self._cuda = self.device.type == "cuda"
         self.name = "line"  # the Pipe names it after its route index
@@ -204,16 +247,68 @@ class LineExecutor:
         self._pending: list = []  # in-flight entries (lists of _Block)
         self._held_feds: list = []  # fed blocks parked behind a target
         self._fed_eof = False  # feed returned None (held blocks may remain)
+        # mesh re-chunking: (C, n) pieces of feed data not yet a full block
+        self._fed_residue: list = []
         self._host_bufs = _HostBuffers()
+
+    # -- mesh ---------------------------------------------------------------
+
+    def _validate_mesh_route(self):
+        t_shards = self.mesh.shape[TIME_AXIS]
+        if self.block_size % t_shards:
+            raise ValueError(
+                f"block_size {self.block_size} not divisible by the mesh "
+                f"time axis ({t_shards})"
+            )
+        if t_shards > 1:
+            for c in self.route.components():
+                if tree_flatten(c.state)[0] and not hasattr(c, "state_spec"):
+                    raise ValueError(
+                        f"stateful component {c!r} has no state_spec: on a "
+                        "time-sharded mesh, stream state must declare its "
+                        "sharding (use the pipe_tpu_torch.parallel.components "
+                        "kit or set state_spec/param_spec explicitly)"
+                    )
+
+    def _mask_device_block(self, data: torch.Tensor, frames: int):
+        """A device source's local block with the frames past the global
+        valid count and, on a channel-padded line, the pad rows zeroed
+        (both by this rank's global positions)."""
+        valid = min(max(frames - self._f0, 0), self._n_local)
+        if valid < data.shape[1]:
+            data = zero_past(data, valid)
+        keep = min(max(self.route.source.output.channels - self._r0, 0),
+                   self._c_local)
+        if keep < data.shape[0]:
+            data = torch.cat([data[:keep], data.new_zeros(
+                (data.shape[0] - keep, data.shape[1]))], dim=0)
+        return data
+
+    def _gather_out(self, d: torch.Tensor) -> torch.Tensor:
+        """The whole output block from every rank's block, on every rank:
+        gathered over the time axis, then over the channel axis unless a
+        processor reduced the channels. The last gather is asked for the
+        host (see ``Mesh.all_gather``), where the sink needs it."""
+        axes = [(TIME_AXIS, 1)]
+        if not any(getattr(p, "reduces_channels", False)
+                   for p in self.route.processors):
+            axes.append((CH_AXIS, 0))
+        for i, (axis, dim) in enumerate(axes):
+            parts = self.mesh.all_gather(d, axis, to_host=i == len(axes) - 1)
+            d = torch.cat(list(parts), dim=dim)
+        return d
 
     # -- one block ----------------------------------------------------------
 
     def _prep_fed_host(self, data):
-        """Copy one host feed result into a (C, block) float32 host tensor
-        the executor owns (pinned on a CUDA line, zero past the valid
-        frames); returns ``(tensor, valid frames)``. The copy is taken at
-        collection time, so a feed may reuse its buffer for the next call
-        even while this block is batched or held."""
+        """Copy this rank's block of one host feed result into a float32
+        host tensor the executor owns (pinned on a CUDA line): ``(C,
+        block)`` without a mesh, ``(c_local, n_local)`` on one, zero past
+        the valid frames and in the channel pad rows. Returns ``(tensor,
+        valid frames of the whole block)``. Only this block is uploaded.
+        The copy is taken at collection time, so a feed may reuse its
+        buffer for the next call even while this block is batched or
+        held."""
         a = np.asarray(data, np.float32)
         if a.ndim == 1:
             a = a[None, :]
@@ -224,13 +319,18 @@ class LineExecutor:
                 f"feed returned shape {a.shape}; expected ({C}, n) with "
                 f"n <= {self.block_size}"
             )
-        shape = (C, self.block_size)
+        shape = (self._c_local, self._n_local)
         buf = (self._host_bufs.take(shape) if self._cuda
                else torch.empty(shape, dtype=torch.float32))
         h = buf.numpy()
-        h[:, :n] = a
-        if n < self.block_size:
-            h[:, n:] = 0.0
+        mine = a[self._r0:self._r0 + self._c_local,
+                 self._f0:self._f0 + self._n_local]
+        rows, cols = mine.shape
+        h[:rows, :cols] = mine
+        if cols < self._n_local:
+            h[:, cols:] = 0.0
+        if rows < self._c_local:
+            h[rows:, :cols] = 0.0
         return buf, n
 
     def _fed_to_device(self, host: torch.Tensor) -> torch.Tensor:
@@ -243,11 +343,17 @@ class LineExecutor:
         self._host_bufs.give(host, ev)
         return x
 
-    def _sweep(self, fed):
-        """Run one block through the line and commit its states. ``fed`` is
-        ``(host tensor, frames)`` for a host-fed line, else None. Returns
-        the block's :class:`_Block`, or None when the source reported EOF
-        on the host (nothing ran)."""
+    def _sweep(self, fed, commit: bool = True):
+        """Run one block through the line and commit its states, under the
+        line's mesh scope. ``fed`` is ``(host tensor, frames)`` for a
+        host-fed line, else None. Returns the block's :class:`_Block`, or
+        None when the source reported EOF on the host (nothing ran).
+        ``commit=False`` (:meth:`dispatch_noop_to`) runs the block with
+        every collective of a regular one and keeps nothing of it."""
+        with mesh_scope(self.mesh):
+            return self._sweep_scoped(fed, commit)
+
+    def _sweep_scoped(self, fed, commit: bool):
         route = self.route
         src, procs, sink = route.source, route.processors, route.sink
         eof = None
@@ -265,7 +371,10 @@ class LineExecutor:
             frames = sig.frames
             if isinstance(frames, torch.Tensor):
                 frames = frames.item()  # host sync: the ops slice by ints
-            sig = Signal(sig.data, int(frames))
+            data, frames = sig.data, int(frames)
+            if self.mesh is not None:
+                data = self._mask_device_block(data, frames)
+            sig = Signal(data, frames)
 
         proc_states = []
         for proc in procs:
@@ -275,6 +384,11 @@ class LineExecutor:
         if sink.step is not None:
             sink_state = sink.step(sink.state, sink.params, sig)
 
+        if not commit:
+            if self._multi and sink.receive is not None:
+                self._gather_out(sig.data)
+            self.blocks_dispatched += 1
+            return None
         if eof is not None:  # a device flag: gate instead of branching
             src_state = _gate(eof, src_state, src.state)
             proc_states = [_gate(eof, s, p.state)
@@ -291,12 +405,15 @@ class LineExecutor:
         """Start the block's output (and device EOF flag) on its way to the
         host and record the event that says it arrived."""
         blk = _Block(sig.frames)
-        if self.route.sink.receive is not None and sig.frames > 0:
-            if sig.data.is_cuda:
-                blk.out = self._host_bufs.take(sig.data.shape)
-                blk.out.copy_(sig.data, non_blocking=True)
-            else:
-                blk.out = sig.data
+        if self.route.sink.receive is not None:
+            # on a mesh larger than 1x1 the gather is a collective: it is
+            # made for every block, whatever the block holds
+            data = self._gather_out(sig.data) if self._multi else sig.data
+            if sig.frames > 0 and data.is_cuda:
+                blk.out = self._host_bufs.take(data.shape)
+                blk.out.copy_(data, non_blocking=True)
+            elif sig.frames > 0:
+                blk.out = data
         if eof is not None:
             blk.eof = torch.empty((), dtype=torch.bool, pin_memory=True)
             blk.eof.copy_(eof, non_blocking=True)
@@ -376,8 +493,18 @@ class LineExecutor:
             if self._held_feds:
                 feds.append(self._held_feds.pop(0))
                 continue
-            if self._fed_eof:
+            if self._fed_eof and not self._fed_residue:
                 break  # feed already returned None; only held blocks left
+            if self.mesh is not None:
+                # a partial block must be the stream's last on a mesh:
+                # short reads are re-chunked into full blocks
+                got = self._feed_full_block(src)
+                if got is None:
+                    break  # EOF with no residue, or the run was cancelled
+                feds.append(got)
+                if got[1] < self.block_size:
+                    break  # the final partial block, at EOF
+                continue
             data = src.feed(self.block_size)
             if data is None:
                 self._fed_eof = True
@@ -394,10 +521,52 @@ class LineExecutor:
             feds = feds[:keep]
         if feds:
             self._enqueue([self._sweep(fed) for fed in feds])
-        if self._fed_eof and not self._held_feds:
+        if self._fed_eof and not self._held_feds and not self._fed_residue:
             self.drain()
             return EOF
         return None
+
+    def _feed_full_block(self, src):
+        """Assemble one FULL block (or the final partial one at EOF) from
+        the feed, parking over- and under-runs in ``_fed_residue``: the
+        mesh twin of the reference's accept-any-length short-read slicing
+        (``pipe.go:404-406``). Returns None at EOF with nothing left (and
+        when the run was cancelled while the feed had nothing ready), else
+        ``(this rank's block, valid frames)``. The repacking is a function
+        of the stream alone, so ranks fed the same stream stay aligned."""
+        have = sum(a.shape[1] for a in self._fed_residue)
+        while have < self.block_size and not self._fed_eof:
+            data = src.feed(self.block_size - have)
+            if data is None:
+                self._fed_eof = True
+                break
+            data = np.asarray(data, np.float32)
+            if data.ndim == 1:
+                data = data[None, :]
+            if data.shape[1] == 0:
+                # nothing ready: ask again after a pause, unless the run
+                # was cancelled meanwhile
+                if self.cancel is not None and self.cancel.is_set():
+                    return None
+                time.sleep(self.EMPTY_READ_BACKOFF_S)
+                continue
+            self._fed_residue.append(data)
+            have += data.shape[1]
+        if have == 0:
+            return None
+        n = min(have, self.block_size)
+        chunks, taken = [], 0
+        while taken < n:
+            a = self._fed_residue[0]
+            take = min(a.shape[1], n - taken)
+            chunks.append(a[:, :take])
+            if take < a.shape[1]:
+                self._fed_residue[0] = a[:, take:]
+            else:
+                self._fed_residue.pop(0)
+            taken += take
+        data = chunks[0] if len(chunks) == 1 else np.concatenate(chunks, axis=1)
+        return self._prep_fed_host(data)
 
     def _dispatch_device(self, budget: int):
         blocks, eof = [], False
@@ -427,11 +596,30 @@ class LineExecutor:
                     self._pending.clear()
                     return EOF
                 if blk.out is not None:
-                    host = blk.out[:, : blk.frames].numpy().copy()
+                    rows = blk.out.shape[0]
+                    if self.mesh is not None:  # slice off channel pad rows
+                        rows = self.route.prev_props(
+                            len(self.route.processors)).channels
+                    host = blk.out[:rows, : blk.frames].numpy().copy()
                     if blk.out.is_pinned():
                         self._host_bufs.give(blk.out)
                     sink.receive(host)
         return None
+
+    def dispatch_noop_to(self, target: int) -> None:
+        """Exit-path padding of the multi-host protocol: sweep zero blocks
+        (frames 0) until the dispatch frontier reaches ``target``, making
+        every collective of a regular dispatch, the output gather included,
+        so that the peers' blocks in flight complete. Nothing is donated
+        here, so no copy of the states is needed: the sweeps commit
+        nothing and deliver nothing, and a later snapshot sees the stream
+        state as it was."""
+        shape = (self._c_local, self._n_local)
+        while self.blocks_dispatched < target:
+            buf = (self._host_bufs.take(shape) if self._cuda
+                   else torch.empty(shape, dtype=torch.float32))
+            buf.zero_()
+            self._sweep((buf, 0), commit=False)
 
     def drain(self):
         """Resolve every in-flight block (normal end-of-stream and flush
@@ -452,6 +640,9 @@ class LineExecutor:
         self.blocks_dispatched = 0
         self._held_feds = []
         self._fed_eof = False
+        self._fed_residue = []
+        if self.mesh is not None:
+            self._validate_mesh_route()
         for comp in self.route.components():
             if comp.start is not None:
                 comp.start()  # raises -> caller handles rollback
@@ -586,6 +777,15 @@ class MultiLineExecutor:
     def apply_mutations(self, ms: mutable.Mutations) -> None:
         for le in self.executors:
             le.apply_mutations(ms)
+
+    def dispatch_noop_to(self, target: int) -> None:
+        """Pad every line to the same frontier, in sweep order: the lines
+        interleave as in a regular round-robin pass, so the order of the
+        per-line collectives is the one the still-streaming peers make."""
+        while any(le.blocks_dispatched < target for le in self.executors):
+            for le in self.executors:
+                if le.blocks_dispatched < target:
+                    le.dispatch_noop_to(le.blocks_dispatched + 1)
 
     def adopt_line(self, le: LineExecutor) -> None:
         """Start and append a new line at a block boundary (the analog of

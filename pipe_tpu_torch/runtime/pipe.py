@@ -21,9 +21,31 @@ splices the component in between blocks (``pipe.go:259-365``,
 ``run.go:134-169``).
 
 ``optimize=True`` fuses every line at build
-(:func:`pipe_tpu_torch.optimize.fuse`). Not ported yet: ``mesh`` (and with
-it the multi-host health rounds and the untargeted multi-host push
-agreement), which raises ``NotImplementedError``.
+(:func:`pipe_tpu_torch.optimize.fuse`).
+
+``mesh=`` (:func:`pipe_tpu_torch.parallel.make_mesh`) shards every line
+over a mesh of ranks, one process per shard: every rank builds the same
+``Pipe`` from lines of :mod:`pipe_tpu_torch.parallel.sharded` ops, is fed
+the same stream and calls the same methods; ``block_size`` is the GLOBAL
+block, and each rank's sink receives the whole output. A block size that
+the mesh or a stage's shape rule does not fit is aggregated
+(``_agg`` user blocks per dispatch; ``at_block`` stays in user blocks and
+must lie on that grid). On a 1x1 mesh everything works as without one. On a
+larger mesh the ranks stay aligned only because they take the same
+decisions from the same stream, so:
+
+- all lines run in ONE executor (a shared mutable context);
+- a component push needs ``at_block``; a late or never-reached target
+  raises ``LateTargetError`` on the rank that saw it. An untargeted push
+  raises ``NotImplementedError``: landing it on the same block on every
+  rank takes the agreement round of ``hostsync``, which is not ported;
+- ``insert_processor`` and ``add_line`` raise ``NotImplementedError`` on
+  any pipe with a mesh (they need ``hostsync`` too); ``host_sync_every``
+  is stored and has no effect;
+- a rank that fails or is stopped alone leaves its peers waiting in their
+  next collective until the group timeout
+  (``pipe_tpu_torch.parallel.mesh.GROUP_TIMEOUT_S``, 60 s): they raise,
+  they do not hang. ``hostsync`` will turn that into an aligned abort.
 """
 
 from __future__ import annotations
@@ -32,6 +54,8 @@ import queue
 import threading
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 from pipe_tpu_torch import mutable
 from pipe_tpu_torch.errors import FlushError, RunError, StartError
@@ -42,12 +66,13 @@ from pipe_tpu_torch.graph import (
     allocate_sink,
     component_context,
     make_route,
+    make_routes_aggregated,
 )
+from pipe_tpu_torch.parallel.meshctx import mesh_scope
 from pipe_tpu_torch.runtime.executor import (
     EOF,
     LineExecutor,
     MultiLineExecutor,
-    refuse_unported,
 )
 
 
@@ -127,9 +152,9 @@ class Pipe:
     ``lookahead`` and ``batch_blocks`` are the executor's dispatch knobs
     (:class:`~pipe_tpu_torch.runtime.executor.LineExecutor`); ``stats`` an
     optional :class:`~pipe_tpu_torch.profiling.StatsRecorder`.
+    ``mesh`` shards the lines over a mesh of ranks (module docstring).
     ``host_sync_every`` is the JAX package's period, in dispatches, of a
-    mesh pipe's cross-host health round: it is stored and has no effect
-    without a mesh."""
+    mesh pipe's cross-host health round: it is stored and has no effect."""
 
     def __init__(self, block_size: int, *lines: Line, stats=None,
                  lookahead: int = 1, batch_blocks: int = 1, mesh=None,
@@ -137,7 +162,6 @@ class Pipe:
                  device=None):
         if not lines:
             raise ValueError("pipe without lines")
-        refuse_unported(mesh=mesh)
         if optimize:
             # run the fusion fixpoint on every line at build
             from pipe_tpu_torch import optimize as _optimize
@@ -145,6 +169,7 @@ class Pipe:
             lines = tuple(_optimize.fuse(line) for line in lines)
         self.block_size = block_size
         self.device = device
+        self.mesh = mesh
         self.host_sync_every = host_sync_every
         self.stats = stats
         self.lookahead = lookahead
@@ -156,23 +181,77 @@ class Pipe:
         self._groups: Dict[mutable.Context, MultiLineExecutor] = {}
         self._executors: List = []  # all top-level executors, launch order
         self._exec_of_route: Dict[int, LineExecutor] = {}
-        for line in lines:
-            self._register_route(make_route(line, block_size, device))
+        # Block aggregation: a mesh pipe whose block size (or stage shape
+        # rules) does not fit the mesh dispatches the smallest working
+        # multiple of the user block per step. Coordinates stay in USER
+        # blocks at the API (push at_block, block_index); internally
+        # everything counts a-block dispatches.
+        self._agg = 1
+        with mesh_scope(mesh):
+            if mesh is None:
+                routes = [make_route(line, block_size, device)
+                          for line in lines]
+            else:
+                routes, self._agg = make_routes_aggregated(
+                    lines, block_size, mesh, device=device)
+        for route in routes:
+            self._register_route(route)
+        if self._multi and len(self._executors) > 1:
+            raise ValueError(
+                "a multi-host pipe needs all its lines in ONE executor so "
+                "every process issues cross-host collectives in the same "
+                "order: build the lines with a shared mutable context "
+                "(pipe_tpu_torch.mutable.mutable()) so they form a single "
+                "sync group — the reference's sync-mode idiom "
+                "(pipe.go:89-103)"
+            )
         self._merger: Optional[_Merger] = None
         self._cancel = threading.Event()
         self._mutations_q: "queue.Queue" = queue.Queue()
         self._control: Optional[threading.Thread] = None
         self._running = False
 
+    @property
+    def _multi(self) -> bool:
+        """True on a mesh larger than 1x1: the JAX package's multi-process
+        mode (every rank runs this pipe; collectives cross processes)."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    @property
+    def _block_internal(self) -> int:
+        """Frames per dispatch: the user block times the aggregation
+        factor (1 unless the mesh shape rules demanded aggregation)."""
+        return self.block_size * self._agg
+
+    def _to_internal_block(self, at_block: Optional[int], what: str):
+        """Convert a USER block target to the internal dispatch grid."""
+        if at_block is None or self._agg == 1:
+            return at_block
+        if at_block % self._agg:
+            raise ValueError(
+                f"{what} at_block={at_block} is not on this pipe's "
+                f"dispatch grid: the mesh shape rules aggregate "
+                f"{self._agg} user blocks per step, so block targets "
+                f"must be multiples of {self._agg}"
+            )
+        return at_block // self._agg
+
+    def _refuse_mesh_surgery(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a pipe with a mesh needs "
+                "pipe_tpu_torch.parallel.hostsync (every rank must adopt at "
+                "the same block), which is not ported yet")
+
     # -- registry (reference pipe.go:128-194) ------------------------------
 
     def _new_executor(self, route: Route) -> LineExecutor:
         idx = len(self.routes)
         self.routes.append(route)
-        le = LineExecutor(route, self.block_size,
+        le = LineExecutor(route, self._block_internal,
                           stats=self._line_stats(idx, route),
                           lookahead=self.lookahead,
-                          batch_blocks=self.batch_blocks)
+                          batch_blocks=self.batch_blocks, mesh=self.mesh)
         le.name = f"line{idx}"
         self._exec_of_route[idx] = le
         return le
@@ -205,7 +284,7 @@ class Pipe:
     def _line_stats(self, idx: int, route: Route):
         if self.stats is None:
             return None
-        return self.stats.line(f"line{idx}", self.block_size,
+        return self.stats.line(f"line{idx}", self._block_internal,
                                route.source.output.channels)
 
     # -- lifecycle ----------------------------------------------------------
@@ -265,7 +344,18 @@ class Pipe:
         """Per-executor thread body (``run.go:171-196``): start (no flush on
         start failure for async executors — the reference defers flush only
         after a successful start), execute until EOF/cancel/error, always
-        flush, report the first error."""
+        flush, report the first error. On a mesh larger than 1x1 delivery
+        is strict (a late target raises) and the end of the stream audits
+        the targets it never reached."""
+        strict = self._multi
+        lines = getattr(executor, "executors", [executor])
+        for le in lines:
+            le.cancel = self._cancel
+        devices = {le.device for le in lines}
+        if len(devices) == 1 and lines[0].device.type == "cuda":
+            # the current card is a property of the thread: pinned buffers
+            # and events made here belong to the lines' card
+            torch.cuda.set_device(lines[0].device)
         try:
             executor.start_hook()
         except Exception as e:  # noqa: BLE001
@@ -283,13 +373,27 @@ class Pipe:
                 stop_before = None
                 if dest is not None:
                     frontier = executor.blocks_dispatched
-                    ms = dest.take_due(frontier)
+                    # strict on a mesh of several ranks: a late target is
+                    # an error, not a rank-local late landing
+                    ms = dest.take_due(frontier, strict=strict)
                     if ms:
                         executor.apply_mutations(ms)
                     # cap the next dispatch at the nearest block-indexed
                     # mutation so it lands exactly there
                     stop_before = dest.next_target(frontier)
                 if executor.execute(stop_before) is EOF:
+                    if strict and dest is not None:
+                        # end-of-stream audit: a targeted mutation that the
+                        # stream never reached would otherwise vanish, on
+                        # one rank only if its delivery raced the EOF
+                        leftover = dest.pending_targets()
+                        if leftover:
+                            raise mutable.LateTargetError(
+                                f"targeted mutation(s) at block(s) "
+                                f"{sorted(leftover)} undelivered at end of "
+                                f"stream (frontier "
+                                f"{executor.blocks_dispatched})"
+                            )
                     break
         except Exception as e:  # noqa: BLE001
             err = RunError(f"error running: {e}")
@@ -353,10 +457,28 @@ class Pipe:
         dispatching that block, splitting a ``batch_blocks`` dispatch at the
         boundary if needed (deterministic landing under any knobs). Every
         feed result is one dispatched block, so under short reads
-        ``at_block=k`` is the k-th source-buffer boundary. A target already
-        passed applies at the next block."""
+        ``at_block=k`` is the k-th source-buffer boundary; on a mesh the
+        executor re-chunks short reads into full blocks, so ``at_block=k``
+        is always sample ``k * block_size``. A target already passed
+        applies at the next block.
+
+        A mesh larger than 1x1 is strict (deterministic or fail): every
+        rank pushes the same targets; a target that arrives after its block
+        was dispatched, or that the stream never reaches, raises
+        ``mutable.LateTargetError`` and aborts the run. Push with headroom:
+        target comfortably past ``block_index()`` plus ``lookahead *
+        batch_blocks``. An untargeted component push there raises
+        ``NotImplementedError`` (module docstring)."""
         if not self._running:
             raise RuntimeError("pipe isn't running")
+        if (self._multi and at_block is None
+                and any(m.context != self.mctx for m in mutations)):
+            raise NotImplementedError(
+                "an untargeted push on a mesh larger than 1x1 would land on "
+                "different blocks on different ranks; the agreement round "
+                "that aligns it is pipe_tpu_torch.parallel.hostsync, which "
+                "is not ported yet: pass at_block= (the same on every rank)")
+        at_block = self._to_internal_block(at_block, "push")
         self._mutations_q.put((list(mutations), at_block))
 
     def block_index(self, line: int = 0) -> int:
@@ -367,9 +489,9 @@ class Pipe:
         (possibly still in flight under ``lookahead``)."""
         route = self.routes[line]
         group = self._groups.get(route.context)
-        if group is not None:
-            return group.blocks_dispatched
-        return self._exec_of_route[line].blocks_dispatched
+        internal = (group.blocks_dispatched if group is not None
+                    else self._exec_of_route[line].blocks_dispatched)
+        return internal * self._agg  # user-block coordinates
 
     def __enter__(self) -> "Pipe":
         """Context-manager sugar: ``with Pipe(...).start() as p:``; exiting
@@ -438,6 +560,7 @@ class Pipe:
         meaningful for a line joining a running group)."""
         if not self._running:
             raise RuntimeError("pipe isn't running")
+        self._refuse_mesh_surgery("add_line")
         handle = _Handle()
 
         def mutation():
@@ -499,6 +622,7 @@ class Pipe:
         re-initializes — a one-block transient)."""
         if not self._running:
             raise RuntimeError("pipe isn't running")
+        self._refuse_mesh_surgery("insert_processor")
         handle = _Handle()
 
         def mutation():

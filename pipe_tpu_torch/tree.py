@@ -13,7 +13,10 @@ from typing import Any, Callable, List, Tuple
 
 def tree_map(fn: Callable, tree: Any) -> Any:
     """Apply ``fn`` to every leaf of ``tree``; dicts keep their keys, lists
-    and tuples their order."""
+    and tuples their order, and ``None`` stays the empty node it is to
+    :func:`tree_flatten`."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -777,3 +777,64 @@ def test_precision_knob_reaches_the_sharded_ols_delay_line(cuda):
     assert np.isfinite(db["default"]) and db["default"] <= db["highest"] + 0.5, db
     for name in ("high", "default"):
         np.testing.assert_array_equal(fixed[name], fixed["highest"])
+
+
+@pytest.mark.gpu
+def test_mesh_pipe_launches_the_tile_kernel_and_equals_the_chain(cuda):
+    """``Pipe(mesh=1x1)`` of ``sharded.FIR -> Biquad -> Mix`` at (64, 10240):
+    every sharded ``Biquad`` block on the tile gate launches ``iir_tiles``
+    exactly twice (2 a section and block), never the one-section kernel, and
+    the sink holds the bits of the ``ShardedChain`` of the same stages. A
+    ``set_sos`` pushed ``at_block=2`` first changes sample ``2 * 10240``."""
+    from pipe_tpu_torch import parallel
+
+    C, B, n = 64, 10240, 4
+    x = np.random.default_rng(19).standard_normal((C, n * B)).astype(np.float32)
+    h = ops.design_lowpass(63, 4000, 48000)
+    sos = ops.design_peaking_eq(48000, 1000, 1.0, 3.0)
+    mixm = np.ones((2, C)) / C
+    mesh = parallel.make_mesh(1, 1)
+    chain = parallel.ShardedChain(
+        mesh, [parallel.FIRStage(h), parallel.BiquadStage(sos),
+               parallel.MixStage(mixm)], C, B, device=cuda)
+    want = chain.process(x)
+
+    def run(push_at=None):
+        sh = parallel.sharded
+        bq = sh.Biquad(sos)
+        pos, out, gate = [0], [], threading.Event()
+
+        def feed(k):
+            gate.wait(60)
+            if pos[0] >= x.shape[1]:
+                return None
+            pos[0] += k
+            return x[:, pos[0] - k: pos[0]]
+
+        p = pipe_tpu_torch.Pipe(B, pipe_tpu_torch.Line(
+            source=lambda m, b: pipe_tpu_torch.Source(
+                output=SignalProperties(48000.0, C), feed=feed),
+            processors=[sh.FIR(h).processor(), bq.processor(),
+                        sh.Mix(mixm).processor()],
+            sink=lambda m, b, pr: pipe_tpu_torch.Sink(receive=out.append)),
+            mesh=mesh, device=cuda)
+        kernels.reset_counts()
+        p.start()
+        if push_at is not None:
+            p.push(bq.set_sos(ops.design_peaking_eq(48000, 1000, 1.0, -3.0)),
+                   at_block=push_at)
+            dest = p._executors[0].dest
+            while dest.pending_targets() != [push_at]:
+                threading.Event().wait(0.001)
+        gate.set()
+        p.wait(120)
+        return np.concatenate(out, axis=1), kernels.launch_counts()
+
+    y, launches = run()
+    assert launches["iir_tiles"] == 2 * n and launches["biquad_section"] == 0
+    assert y.shape == want.shape
+    np.testing.assert_array_equal(y, want)
+    y_push, launches = run(push_at=2)
+    assert launches["iir_tiles"] == 2 * n
+    changed = np.flatnonzero(np.any(y_push != y, axis=0))
+    assert changed[0] == 2 * B

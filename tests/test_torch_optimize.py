@@ -486,3 +486,186 @@ def test_config4_small_optimized_pipe_retunes_land_like_jax(config4_data):
         assert _first_change(y, y_eq) == GAIN_AT * B4, name
         got[name] = y
     assert snr_db(got["jax"], got["port"]) >= 100
+
+
+# -- the sharded backend (twins of the mesh tests of tests/test_optimize.py) ----
+# The rewrites and the delegates are the same on any mesh; here they run on a
+# 1x1 mesh in this process, against the JAX package's rewrite of the same
+# line and the float64 oracle. tests/test_torch_mesh_pipe.py runs the same
+# lines on the original meshes (1x4, 2x2, 2x4) on real ranks.
+
+
+def _sharded_pipe(pkg, procs, x, block, fuse_first=True):
+    """``procs`` (sharded ops of ``pkg``) as a fused line in a 1x1 mesh
+    Pipe fed ``x``: ``(pipe, sink values)`` after the stream ended."""
+    from pkgutil import resolve_name
+
+    pos = [0]
+
+    def feed(n):
+        if pos[0] >= x.shape[1]:
+            return None
+        c = x[:, pos[0]: pos[0] + n]
+        pos[0] += n
+        return c
+
+    sink = resolve_name(pkg.__name__ + ".mock").Sink()
+    line = pkg.Line(
+        source=lambda m, b: pkg.Source(
+            output=pkg.SignalProperties(44100.0, x.shape[0]), feed=feed),
+        processors=[o.processor() for o in procs], sink=sink.sink())
+    if fuse_first:
+        line = resolve_name(pkg.__name__ + ".optimize").fuse(line)
+    p = pkg.Pipe(block, line,
+                 mesh=resolve_name(pkg.__name__ + ".parallel").make_mesh(1, 1))
+    p.start()
+    p.wait(120)
+    return p, sink.values
+
+
+def _both_sharded(make, x, block):
+    """The fused line of each package on the same input: the port's ops,
+    its pipe and output, and the JAX pipe's output."""
+    import pipe_tpu.parallel
+
+    from pipe_tpu_torch import parallel
+
+    tops_ = make(parallel.sharded)
+    tp, ty = _sharded_pipe(pipe_tpu_torch, tops_, x, block)
+    jp, jy = _sharded_pipe(pipe_tpu, make(pipe_tpu.parallel.sharded), x, block)
+    assert len(tp.routes[0].processors) == len(jp.routes[0].processors)
+    assert ty.shape == jy.shape and snr_db(jy, ty) > 100
+    return tops_, tp, ty
+
+
+def test_fuse_sharded_biquad_cascade_and_gain_fir(rng):
+    """A sharded biquad run collapses to one cascade stage and a gain folds
+    into the sharded FIR; parity with the float64 oracle; a per-part retune
+    through the original object lands in the cascade's row."""
+    from pipe_tpu_torch import parallel
+
+    C, BLOCK = 2, 4096
+    x = rng.standard_normal((C, BLOCK * 3)).astype(np.float32)
+    h = np.asarray(ops.design_lowpass(63, 4000.0, 44100.0))
+    r1 = ops.design_peaking_eq(44100, freq=800, q=1.0, gain_db=4.0)
+    r2 = ops.design_peaking_eq(44100, freq=3000, q=1.5, gain_db=-3.0)
+    (g, f, b1, b2), p, y = _both_sharded(
+        lambda sh: [sh.Gain(0.5), sh.FIR(h), sh.Biquad(r1), sh.Biquad(r2)],
+        x, BLOCK)
+    assert len(p.routes[0].processors) == 2  # gain+fir -> 1, biquad run -> 1
+    o = scipy.signal.lfilter(h, [1.0], 0.5 * x.astype(np.float64), axis=1)
+    oracle = scipy.signal.sosfilt(np.vstack([r1, r2]), o, axis=1)
+    assert snr_db(oracle, y) > 100
+    sh = parallel.sharded
+    assert isinstance(b1._delegate, sh.BiquadCascade) and b2._delegate is b1._delegate
+    assert isinstance(g._delegate, sh.FIRGain) and f._delegate is g._delegate
+    cascade = b1._delegate._component
+    before = cascade.params["sos"]
+    b2.set_sos(2 * r1).apply()  # normalized: the row becomes r1
+    after = cascade.params["sos"]
+    assert after is not before  # a clone was set; nothing written in place
+    np.testing.assert_array_equal(after[0].numpy(), before[0].numpy())
+    np.testing.assert_allclose(after[1].numpy(), r1 / r1[3], rtol=1e-6)
+    g.set_gain(0.25).apply()
+    assert float(g._delegate._component.params["gain"]) == 0.25
+    # a sharded and a streaming op never fuse
+    mixed = optimize.fuse(Line(source=None, sink=None, processors=[
+        sh.Gain(0.5).processor(), ops.FIR(h).processor(),
+        ops.Biquad(r1).processor(), sh.Biquad(r2).processor()]))
+    assert len(mixed.processors) == 4
+
+
+def test_fuse_sharded_mix_gain(rng):
+    from pipe_tpu_torch import parallel
+
+    C, BLOCK = 4, 2048
+    x = rng.standard_normal((C, BLOCK * 2)).astype(np.float32)
+    m = rng.standard_normal((2, C)).astype(np.float32)
+    (g, mx), p, y = _both_sharded(lambda sh: [sh.Gain(0.5), sh.Mix(m)], x, BLOCK)
+    assert len(p.routes[0].processors) == 1
+    assert isinstance(mx._delegate, parallel.sharded.MixGain)
+    oracle = 0.5 * m.astype(np.float64) @ x.astype(np.float64)
+    assert snr_db(oracle, y) > 100
+    (mx2, g2), p2, y2 = _both_sharded(
+        lambda sh: [sh.Mix(m), sh.Gain(np.asarray([0.5, 2.0], np.float32))],
+        x, BLOCK)
+    assert len(p2.routes[0].processors) == 1 and mx2._delegate._side == "out"
+    assert snr_db(np.asarray([[0.5], [2.0]]) * (2 * oracle), y2) > 100
+
+
+def test_fuse_sharded_fir_run_and_gain_ols(rng):
+    """FIR run -> FIRCascade stage; Gain + OLS -> OLSGain; per-slot retunes
+    route through the delegates."""
+    from pipe_tpu_torch import parallel
+
+    h1 = np.asarray(ops.design_lowpass(63, 8000.0, 44100.0))
+    h2 = np.asarray(ops.design_lowpass(31, 4000.0, 44100.0))
+    x = rng.standard_normal((2, 8192)).astype(np.float32)
+    ir = rng.standard_normal(1500) * np.exp(-np.arange(1500) / 250.0)
+    (f1, f2, g, conv), p, y = _both_sharded(
+        lambda sh: [sh.FIR(h1), sh.FIR(h2), sh.Gain(0.5), sh.OLS(ir)], x, 2048)
+    assert len(p.routes[0].processors) == 2  # [FIRCascade, OLSGain]
+    o = x.astype(np.float64)
+    for h in (h1, h2):
+        o = scipy.signal.lfilter(h, [1.0], o, axis=1)
+    oracle = scipy.signal.lfilter(ir, [1.0], 0.5 * o, axis=1)
+    assert snr_db(oracle, y) > 100
+    sh = parallel.sharded
+    cascade, olsg = p.routes[0].processors
+    h2b = np.asarray(ops.design_lowpass(31, 2000.0, 44100.0))
+    f2.set_taps(h2b).apply()
+    np.testing.assert_allclose(cascade.params["taps1"].numpy(), h2b, rtol=1e-6)
+    np.testing.assert_allclose(cascade.params["taps0"].numpy(), h1, rtol=1e-6)
+    with pytest.raises(ValueError, match="live retunes must keep shapes"):
+        f2.set_taps(h1)
+    g.set_gain(0.25).apply()
+    assert isinstance(conv._delegate, sh.OLSGain)
+    assert float(olsg.params["gain"]) == 0.25
+    before = olsg.params["ir_f"]
+    conv.set_ir(ir * 2).apply()
+    np.testing.assert_allclose(olsg.params["ir_f"].numpy(), 2 * before.numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_mesh_optimize_fuse_sharded_pair(rng):
+    """Sharded FIR + Resample -> the fused sharded stage; the output
+    matches the unfused chain, and ``set_taps`` on the original FIR routes
+    through the fused component. ``Pipe(..., mesh=, optimize=True)`` fuses
+    at build."""
+    from pipe_tpu_torch import parallel
+
+    C, BLOCK = 4, 147 * 16
+    data = rng.standard_normal((C, BLOCK * 2)).astype(np.float32)
+    h = np.asarray(ops.design_lowpass(63, 3000, 44100))
+
+    def make(sh):
+        return [sh.FIR(h), sh.Resample(48000, 44100, taps_per_phase=16)]
+
+    (fir, rs), p, fused = _both_sharded(make, data, BLOCK)
+    assert len(p.routes[0].processors) == 1
+    _, plain = _sharded_pipe(pipe_tpu_torch, make(parallel.sharded), data,
+                             BLOCK, fuse_first=False)
+    assert fused.shape == plain.shape
+    np.testing.assert_allclose(fused, plain, atol=3e-5)
+    fir.set_taps(h * 0.5).apply()
+    assert isinstance(fir._delegate, parallel.sharded.FIRResample)
+    np.testing.assert_allclose(
+        fir._delegate._component.params["taps"].numpy(), h * 0.5, rtol=1e-6)
+    ops2 = make(parallel.sharded)
+    sink = mock.Sink()
+    pos = [0]
+
+    def feed(n):
+        if pos[0] >= data.shape[1]:
+            return None
+        pos[0] += n
+        return data[:, pos[0] - n: pos[0]]
+
+    p2 = pipe_tpu_torch.Pipe(BLOCK, Line(
+        source=lambda m, b: Source(output=SignalProperties(44100.0, C), feed=feed),
+        processors=[o.processor() for o in ops2], sink=sink.sink()),
+        mesh=parallel.make_mesh(1, 1), optimize=True)
+    assert len(p2.routes[0].processors) == 1
+    p2.start()
+    p2.wait(60)
+    np.testing.assert_array_equal(sink.values, fused)

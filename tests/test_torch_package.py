@@ -60,6 +60,28 @@ def test_op_kit_exports_every_jax_name():
     assert callable(pipe_tpu_torch.optimize.fuse)
 
 
+def test_sharded_kit_exports_every_jax_name():
+    """``pipe_tpu_torch.parallel.sharded`` defines every public name that
+    ``pipe_tpu.parallel.sharded`` defines (the base and the 22 op classes),
+    each op class a subclass of the port's base, and the import check above
+    covers its file."""
+    import pipe_tpu.parallel
+    from pipe_tpu_torch import parallel
+
+    jmod, tmod = pipe_tpu.parallel.sharded, parallel.sharded
+    assert tmod is parallel.components
+    names = [n for n, v in vars(jmod).items() if not n.startswith("_")
+             and getattr(v, "__module__", None) == jmod.__name__]
+    assert len(names) == 23 and "ShardedOp" in names
+    for n in names:
+        assert getattr(tmod, n).__module__ == tmod.__name__, n
+        assert issubclass(getattr(tmod, n), tmod.ShardedOp), n
+    for private in ("_local_shape", "_pad_ir_rows"):
+        assert callable(getattr(tmod, private))
+    assert PKG / "parallel" / "components.py" in set(PKG.rglob("*.py"))
+    assert "sharded" in parallel.__all__
+
+
 def test_fp32_pinned_for_cublas_and_cudnn():
     assert config.matmul_precision() == "highest"
     assert config.fp32_pinned()

@@ -837,14 +837,18 @@ def test_every_stage_of_the_jax_package_constructs():
         assert np.isfinite(y).all() and y.shape == (
             chain.out_channels, 2 * chain.out_frames), name
     assert not hasattr(parallel.chain, "_not_ported")
-    # every name the JAX package exports exists in the port, bar the
-    # wrappers of the mesh Pipe
+    # every name the JAX package exports exists in the port, the wrappers
+    # of the mesh Pipe included, and a Pipe takes a mesh
     missing = set(jparallel.__all__) - set(parallel.__all__)
-    assert missing == {"sharded"}, missing
-    with pytest.raises(NotImplementedError):
-        pipe_tpu_torch.Pipe(64, pipe_tpu_torch.Line(
-            source=pipe_tpu_torch.mock.Source(channels=1, limit=64).source(),
-            sink=pipe_tpu_torch.mock.Sink().sink()), mesh=parallel.make_mesh(1, 1))
+    assert not missing, missing
+    sink = pipe_tpu_torch.mock.Sink()
+    p = pipe_tpu_torch.Pipe(64, pipe_tpu_torch.Line(
+        source=pipe_tpu_torch.mock.Source(channels=1, limit=64, value=2.0).source(),
+        processors=[parallel.sharded.Gain(0.5).processor()],
+        sink=sink.sink()), mesh=parallel.make_mesh(1, 1))
+    p.start()
+    p.wait(60)
+    assert sink.values.shape == (1, 64) and np.all(sink.values == 1.0)
 
 
 def test_a_hung_or_dead_rank_fails_its_job_within_its_limit(pool):

@@ -70,17 +70,35 @@ def test_no_lines_raises():
 @pytest.mark.parametrize("knob", [{"mesh": object()}, {"optimize": True}],
                          ids=["mesh", "optimize"])
 def test_unported_knobs_raise(knob):
-    """``mesh`` is not ported and raises; ``optimize=True`` is: the Pipe
-    fuses its line at build (two biquads into one cascade, a gain into
-    the mix) and streams what the unfused line streams."""
-    from pipe_tpu_torch import ops
+    """No knob of the JAX ``Pipe`` is left unported. ``mesh`` takes a
+    :func:`pipe_tpu_torch.parallel.make_mesh` mesh (anything else fails at
+    build, before a thread starts) and what still needs ``hostsync`` raises
+    ``NotImplementedError``: live surgery on a pipe with a mesh.
+    ``optimize=True``: the Pipe fuses its line at build (two biquads into
+    one cascade, a gain into the mix) and streams what the unfused line
+    streams."""
+    from pipe_tpu_torch import ops, parallel
     from pipe_tpu_torch.ops.fused import BiquadCascade, MixWithGain
 
     if "mesh" in knob:
-        line = pipe_tpu_torch.Line(source=mock.Source(limit=4).source(),
-                                   sink=mock.Sink().sink())
-        with pytest.raises(NotImplementedError):
-            pipe_tpu_torch.Pipe(BLOCK, line, **knob)
+        def line(sink):
+            return pipe_tpu_torch.Line(
+                source=mock.Source(limit=4 * BLOCK, value=1.0).source(),
+                processors=[parallel.sharded.Gain(3.0).processor()],
+                sink=sink.sink())
+
+        with pytest.raises(AttributeError):
+            pipe_tpu_torch.Pipe(BLOCK, line(mock.Sink()), **knob)
+        sink = mock.Sink()
+        p = pipe_tpu_torch.Pipe(BLOCK, line(sink), mesh=parallel.make_mesh(1, 1))
+        p.start()
+        for call in (lambda: p.insert_processor(
+                         0, 0, parallel.sharded.Gain(2.0).processor()),
+                     lambda: p.add_line(line(mock.Sink()))):
+            with pytest.raises(NotImplementedError, match="hostsync"):
+                call()
+        p.wait(60)
+        assert sink.values.shape == (1, 4 * BLOCK) and np.all(sink.values == 3.0)
         return
     rows = [ops.design_peaking_eq(44100, 1000, 1.0, 3.0),
             ops.design_highshelf(44100, 8000, -2.0)]
@@ -109,8 +127,8 @@ def test_unported_knobs_raise(knob):
 
 def test_host_sync_every_is_accepted_and_stored(pipe_timeout):
     """The JAX package's ``host_sync_every`` (default 16) is a knob of the
-    port's ``Pipe`` too: stored, and without a mesh without effect; with a
-    mesh the Pipe goes on refusing."""
+    port's ``Pipe`` too: stored and without effect, with a mesh too (the
+    health rounds it would pace belong to ``hostsync``)."""
     def line(sink):
         return pipe_tpu_torch.Line(
             source=mock.Source(limit=8 * BLOCK, channels=2).source(),
@@ -124,9 +142,14 @@ def test_host_sync_every_is_accepted_and_stored(pipe_timeout):
     assert p.host_sync_every == 3
     wait_pipe(p, pipe_timeout)
     assert sink.messages == 8 and sink.samples == 8 * BLOCK
-    with pytest.raises(NotImplementedError):
-        pipe_tpu_torch.Pipe(BLOCK, line(mock.Sink()), mesh=object(),
+    from pipe_tpu_torch import parallel
+
+    sink = mock.Sink(discard=True)
+    p = pipe_tpu_torch.Pipe(BLOCK, line(sink), mesh=parallel.make_mesh(1, 1),
                             host_sync_every=3)
+    assert p.host_sync_every == 3
+    wait_pipe(p, pipe_timeout)
+    assert sink.messages == 8 and sink.samples == 8 * BLOCK
 
 
 def test_reset_restart(pipe_timeout):

@@ -150,14 +150,22 @@ def test_start_error_rolls_back_started_components():
     ids=["mesh", "optimize"],
 )
 def test_unported_knobs_raise(knob):
-    """``mesh`` is not ported: it raises before anything starts.
-    ``optimize=True`` is: ``run`` fuses the line (the gain after the FIR
-    folds into its taps) and streams what the unfused line streams."""
+    """No knob of the JAX ``run`` is left unported. ``mesh`` takes a
+    :func:`pipe_tpu_torch.parallel.make_mesh` mesh: anything else fails at
+    build, before anything starts, and on a 1x1 mesh the line streams what
+    it streams without one. ``optimize=True``: ``run`` fuses the line (the
+    gain after the FIR folds into its taps) and streams what the unfused
+    line streams."""
     hooks = [Hooks(), Hooks(), Hooks()]
     if "mesh" in knob:
-        with pytest.raises(NotImplementedError):
+        from pipe_tpu_torch import parallel
+
+        with pytest.raises(AttributeError):
             pipe_tpu_torch.run(512, counting_line(1040, hooks), **knob)
         assert not any(h.started for h in hooks)
+        pipe_tpu_torch.run(512, counting_line(1040, hooks),
+                           mesh=parallel.make_mesh(1, 1))
+        assert all(h.started and h.flushed for h in hooks)
         return
     x = np.random.default_rng(5).standard_normal((2, 1040)).astype(np.float32)
     h = tops.design_lowpass(31, 4000.0, 44100.0)

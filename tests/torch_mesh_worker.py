@@ -180,6 +180,297 @@ def halo_job(rank, t, x, carried, halo):
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh Pipe jobs. A line is described by plain values, so the same
+# description builds it from either package (``pkg`` is ``pipe_tpu`` in the
+# test process and ``pipe_tpu_torch`` in the ranks):
+#   {"source": (kind, *args), "ops": [(name, args, kwargs), ...],
+#    "discard": bool}
+# source kinds: ("feed", data, sample_rate), ("chunky", data, seed),
+# ("packets", data, size), ("empty", data), ("mock", kwargs),
+# ("failing", data, block index, failing rank or None)
+# ---------------------------------------------------------------------------
+
+
+def make_feed(kind, args, rank=0):
+    """The host feed function of a source description."""
+    import numpy as np
+
+    data = args[0]
+    N = data.shape[1]
+    pos, call = [0], [0]
+    if kind == "feed":
+        def feed(n):
+            if pos[0] >= N:
+                return None
+            c = data[:, pos[0]: pos[0] + n]
+            pos[0] += n
+            return c
+    elif kind == "chunky":  # random-length short reads
+        r = np.random.default_rng(args[1])
+
+        def feed(n):
+            if pos[0] >= N:
+                return None
+            take = min(int(r.integers(1, n + 1)), N - pos[0])
+            c = data[:, pos[0]: pos[0] + take]
+            pos[0] += take
+            return c
+    elif kind == "packets":  # fixed packets, whatever was asked for
+        def feed(n):
+            if pos[0] >= N:
+                return None
+            c = data[:, pos[0]: pos[0] + args[1]]
+            pos[0] += c.shape[1]
+            return c
+    elif kind == "empty":  # every third read has nothing ready
+        def feed(n):
+            call[0] += 1
+            if call[0] % 3 == 0:
+                return np.zeros((data.shape[0], 0), np.float32)
+            if pos[0] >= N:
+                return None
+            c = data[:, pos[0]: pos[0] + min(n, 300)]
+            pos[0] += c.shape[1]
+            return c
+    elif kind == "failing":  # raises at a block on one rank (or on all)
+        def feed(n):
+            if pos[0] >= N:
+                return None
+            if pos[0] >= args[1] * n and args[2] in (None, rank):
+                raise IOError(f"feed failed on rank {rank}")
+            c = data[:, pos[0]: pos[0] + n]
+            pos[0] += n
+            return c
+    else:
+        raise ValueError(kind)
+    return feed
+
+
+def build_lines(pkg, lines, gate=None, context=None, rank=0):
+    """Lines of ``pkg`` from their descriptions: ``(lines, ops, sinks,
+    sources)`` with the op objects per line (for pushes) and the mock sinks
+    and sources. ``gate``: an Event every source waits for before each
+    dispatch (its ``host_pre``), so that targeted pushes are delivered
+    before the stream reaches them."""
+    from pkgutil import resolve_name
+
+    mock = resolve_name(pkg.__name__ + ".mock")
+    sharded = resolve_name(pkg.__name__ + ".parallel").sharded
+    streaming = resolve_name(pkg.__name__ + ".ops")
+    out_lines, all_ops, sinks, sources = [], [], [], []
+    for d in lines:
+        kind, *args = d["source"]
+        if kind == "mock":
+            msrc = mock.Source(**args[0])
+            inner = msrc.source()
+            sources.append(msrc)
+        else:
+            feed = make_feed(kind, args, rank)
+            sr = args[1] if kind == "feed" and len(args) > 1 else 44100.0
+            channels = args[0].shape[0]
+
+            def inner(ctx, block, feed=feed, sr=sr, channels=channels):
+                return pkg.Source(
+                    output=pkg.SignalProperties(sr, channels), feed=feed)
+            sources.append(None)
+
+        def src_alloc(ctx, block, inner=inner):
+            comp = inner(ctx, block)
+            if gate is not None:
+                pre = comp.host_pre
+
+                def host_pre():
+                    gate.wait(60)
+                    if pre is not None:
+                        pre()
+                comp.host_pre = host_pre
+            return comp
+
+        ops = []
+        for name, a, k in d.get("ops", []):
+            if name == "FIRCascade":  # args: the member taps
+                ops.append(sharded.FIRCascade([sharded.FIR(t) for t in a[0]]))
+            elif name == "BiquadCascade":  # args: the rows; kwargs per row
+                ops.append(sharded.BiquadCascade(
+                    [sharded.Biquad(r, **k) for r in a[0]]))
+            else:
+                mod = streaming if name.startswith("ops.") else sharded
+                ops.append(getattr(mod, name.split(".")[-1])(*a, **k))
+        sink = mock.Sink(discard=d.get("discard", False))
+        kw = {} if context is None else {"context": context}
+        out_lines.append(pkg.Line(source=src_alloc,
+                                  processors=[o.processor() for o in ops],
+                                  sink=sink.sink(), **kw))
+        all_ops.append(ops)
+        sinks.append(sink)
+    return out_lines, all_ops, sinks, sources
+
+
+def drive_pipe(pkg, make_mesh, mesh, block, lines, pushes=(), knobs=None,
+               entry="pipe", shared_context=False, restore=None,
+               trees_in=None, snapshot=False, trees_out=False, rank=0,
+               late_rank=None, wait_s=60.0, stats=False, fuse=False,
+               noop=0):
+    """Build the lines on ``make_mesh(*mesh)``, stream them to the end and
+    report. ``pushes``: ``(line, op index, method, args, kwargs, at_block)``,
+    pushed after ``start`` and delivered before the sources produce
+    anything (the gate), except on ``late_rank``, which pushes once the
+    stream is past the target."""
+    import threading
+    import time
+    from pkgutil import resolve_name
+
+    import numpy as np
+
+    m = make_mesh(*mesh)
+    if hasattr(m, "member") and not m.member:
+        return None
+    knobs = dict(knobs or {})
+    gate = threading.Event() if pushes else None
+    context = pkg.mutable.mutable() if shared_context else None
+    built, ops, sinks, sources = build_lines(pkg, lines, gate, context, rank)
+    if fuse:
+        optimize = resolve_name(pkg.__name__ + ".optimize")
+        built = [optimize.fuse(line) for line in built]
+    res = {"error": None}
+    if stats:
+        knobs["stats"] = resolve_name(pkg.__name__ + ".profiling").StatsRecorder()
+    if entry == "run":
+        pkg.run(block, *built, mesh=m, **knobs)
+        res["out"] = [s.values for s in sinks]
+        return res
+    p = pkg.Pipe(block, *built, mesh=m, **knobs)
+    res["agg"] = p._agg
+    res["n_procs"] = [len(r.processors) for r in p.routes]
+    res["out_capacity"] = [[q.out_capacity for q in r.processors]
+                           for r in p.routes]
+    res["out_props"] = [[(q.output.sample_rate, q.output.channels)
+                         for q in r.processors] for r in p.routes]
+    checkpoint = resolve_name(pkg.__name__ + ".checkpoint")
+    if restore is not None:
+        checkpoint.restore(p, checkpoint.Checkpoint(
+            leaves=restore, block_size=block))
+    if trees_in is not None:
+        resolve_name(pkg.__name__ + ".convert").pipe_trees_from_numpy(p, trees_in)
+    if hasattr(m, "reset_stats"):
+        m.reset_stats()
+    p.start()
+    try:
+        if rank == late_rank:
+            gate.set()
+            target = max(pu[5] for pu in pushes)
+            deadline = time.monotonic() + 30
+            while (p.block_index() <= target
+                   and time.monotonic() < deadline):
+                time.sleep(0.002)
+        for li, oi, method, a, k, at in pushes:
+            op = ops[li][oi]
+            if method.startswith("set_part_"):  # the part by its index
+                a = (op._parts[a[0]],) + tuple(a[1:])
+            p.push(getattr(op, method)(*a, **k), at_block=at)
+        if pushes and rank != late_rank:
+            dest = p._executors[0].dest
+            deadline = time.monotonic() + 30
+            while len(dest.pending_targets()) < len(pushes):
+                assert time.monotonic() < deadline, "pushes never delivered"
+                time.sleep(0.002)
+            gate.set()
+        p.wait(wait_s)
+    except Exception as e:  # noqa: BLE001 - reported to the test
+        if gate is not None:
+            gate.set()
+        cause = e.__cause__
+        res["error"] = (type(e).__name__, str(e),
+                        type(cause).__name__ if cause is not None else None)
+        try:
+            p.wait(wait_s)
+        except Exception:  # noqa: BLE001
+            pass
+    res["out"] = [s.values for s in sinks]
+    res["messages"] = [s.messages for s in sinks]
+    res["src"] = [None if s is None else (s.messages, s.samples)
+                  for s in sources]
+    res["blocks"] = p.block_index()
+    if stats:
+        ls = knobs["stats"].lines["line0"]
+        res["stats"] = (ls.blocks, ls.frames, ls.wall_s)
+    if noop and res["error"] is None:
+        convert = resolve_name(pkg.__name__ + ".convert")
+        le = p._exec_of_route[0]
+        before = convert.tree_to_numpy([c.state for c in p.routes[0].components()])
+        n0 = le.blocks_dispatched
+        p._executors[0].dispatch_noop_to(n0 + noop)
+        after = convert.tree_to_numpy([c.state for c in p.routes[0].components()])
+        res["noop"] = (le.blocks_dispatched - n0, before, after,
+                       sinks[0].values.shape)
+    if hasattr(m, "stats"):
+        res["comm"] = {k: list(v) for k, v in m.stats.items()}
+    if snapshot and res["error"] is None:
+        res["ckpt"] = checkpoint.snapshot(p).leaves
+    if trees_out and res["error"] is None:
+        res["trees"] = resolve_name(
+            pkg.__name__ + ".convert").pipe_trees_to_numpy(p)
+    return res
+
+
+def pipe_job(rank, group_timeout=None, **kwargs):
+    """:func:`drive_pipe` with the port on this rank. ``group_timeout``
+    lowers the mesh's group timeout for meshes made from now on (a job
+    whose peers must give up quickly)."""
+    import pipe_tpu_torch
+    from pipe_tpu_torch import parallel
+    from pipe_tpu_torch.parallel import mesh as mesh_mod
+
+    if group_timeout is not None:
+        mesh_mod.GROUP_TIMEOUT_S = group_timeout
+        mesh_mod._meshes.clear()
+    return drive_pipe(pipe_tpu_torch, parallel.make_mesh, rank=rank, **kwargs)
+
+
+def pipe_refusals_job(rank, mesh):
+    """What a mesh Pipe refuses on purpose: ``{what: (type, message)}``."""
+    import numpy as np
+
+    import pipe_tpu_torch as pt
+    from pipe_tpu_torch import mock, parallel
+
+    m = parallel.make_mesh(*mesh)
+    if not m.member:
+        return None
+    sh = parallel.sharded
+    out = {}
+
+    def line(**kw):
+        return pt.Line(source=mock.Source(channels=2, value=1.0,
+                                          limit=8 * 1024).source(),
+                       processors=[g.processor()], sink=mock.Sink().sink(), **kw)
+
+    def attempt(what, fn):
+        try:
+            fn()
+            out[what] = ("no error", "")
+        except Exception as e:  # noqa: BLE001 - reported to the test
+            out[what] = (type(e).__name__, str(e))
+
+    g = sh.Gain(2.0)
+    attempt("two executors", lambda: pt.Pipe(1024, line(), line(), mesh=m))
+    ctx = pt.mutable.mutable()
+    attempt("one group", lambda: pt.Pipe(
+        1024, line(context=ctx), line(context=ctx), mesh=m))
+    gate_src = mock.Source(channels=2, value=1.0, limit=4 * 1024)
+    p = pt.Pipe(1024, pt.Line(source=gate_src.source(),
+                              processors=[g.processor()],
+                              sink=mock.Sink().sink()), mesh=m)
+    p.start()
+    attempt("untargeted push", lambda: p.push(g.set_gain(3.0)))
+    attempt("insert_processor", lambda: p.insert_processor(
+        0, 0, sh.Gain(1.0).processor(), at_block=2))
+    attempt("add_line", lambda: p.add_line(line(), at_block=2))
+    p.wait(60)
+    return out
+
+
 def hang_job(rank, seconds):
     """Rank 0 returns at once; the others sleep."""
     if rank:
@@ -203,7 +494,7 @@ def die_job(rank):
 
 JOBS = {f.__name__: f for f in (
     chain_job, build_error_job, mesh_error_job, prefix_job, halo_job,
-    hang_job, die_job)}
+    pipe_job, pipe_refusals_job, hang_job, die_job)}
 
 
 # ---------------------------------------------------------------------------
