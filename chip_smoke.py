@@ -147,20 +147,54 @@ the card (``cuda:0``), in phases, each printing one line:
     the output is >= 110 dB from the plain run's (the fused FIR+resample
     bank sums in another order); >= 100 dB against phase
     15's float64 oracle; samples/s beside phase 15's, launches a block and
-    the device's idle share printed.
+    the device's idle share printed. Then live surgery on that pipe: a
+    ``sharded.Biquad`` (peaking, 2.5 kHz) inserted before the mix
+    ``at_block=2`` first changes sample 2 x 327,680 exactly, ``iir_tiles``
+    is launched 16 + 2 x 2 times, and the output is >= 100 dB against the
+    ``Pipe`` without a mesh (the streaming ops) doing the same insert at the
+    same block; the same insert with no ``at_block``, pushed once two blocks
+    went out, lands on a block boundary (block 2 or 3) with ``iir_tiles``
+    16 + 2 for each block after it; a second line (8 channels, resampler
+    and one EQ section) added ``at_block=2`` into the sync group equals that
+    line run alone, bit for bit;
+20. in phase 16's four ranks (``--four-ranks`` too), on 1x4 and 2x2, the
+    main path through ``Pipe(mesh=)`` in 4 blocks of 37,632 frames at 64
+    channels, with the health rounds of ``pipe_tpu_torch.parallel.hostsync``:
+    (a) ``host_sync_every=1``: the sink equals phase 16's bit for bit,
+    exactly the rounds that the protocol predicts (one a dispatch and one
+    after the no-op sweep that pads the stream's end), ``iir_tiles`` 4 a
+    sweep (20 a rank: the 4 blocks and the no-op sweep, which computes as a
+    block does), the rounds' host time in us a round (the wait for the
+    slowest rank included) and the exchange's alone (200 back to back), and
+    the rate beside phase 16's pipe (one round at the end); (b) a
+    ``set_sos`` pushed with no ``at_block`` on every rank before the feed
+    opens lands on block 2 everywhere, bit for bit the targeted push's
+    output; (d) a ``sharded.Biquad`` inserted ``at_block=2`` on every rank:
+    first change at sample 81,920, the ranks equal, ``iir_tiles`` 26 a
+    rank (20 + 2 for each of the 3 sweeps from block 2), >= 100 dB against a 1x1 ``Pipe(mesh=)`` with the same insert that
+    the parent process runs on the same input; (e) a ``sharded.Resample``
+    inserted at the head, whose new width breaks the downstream resampler's
+    shape rule: the handle fails with a ``ValueError`` naming the shape
+    rule and the output equals the plain run's; (c) rank 2's sink raises at
+    block 2: every rank's ``wait()`` raises within 15 s with the group
+    timeout left at 60 s, rank 2 with its own error, the others with a
+    ``RunError`` from ``PeerAbortError``.
 
 Phase 16 also runs, in the same ranks and on both meshes, the same two
 ``Line``s through ``Pipe(mesh=)``: the main path in blocks of 37,632 frames
 (plain, and with the ``set_sos`` pushed ``at_block=2`` on every rank) and
-config 4 as ``sharded.OLS -> sharded.Biquad`` in blocks of 32,768. On every
-rank the sink's output equals the four-rank chain's gathered output bit for
-bit and is identical across ranks, ``iir_tiles`` is launched as often as by
-the chain (16 and 28 a rank), and the collectives of the run, by name in
-calls and bytes, are those of the chain's run (its stages' plus the gather
-of the output, which both make once a block).
+config 4 as ``sharded.OLS -> sharded.Biquad`` in blocks of 32,768, each
+with one health round, at the end of the stream. On every rank the sink's
+output equals the four-rank chain's gathered output bit for bit and is
+identical across ranks; each sweep, the blocks' and the one no-op sweep
+that pads the stream to its round, launches ``iir_tiles`` as often as the
+chain does a chunk (4 and 2 a rank: 20 and 30 a run) and makes the chain's
+data collectives of one chunk, by name in calls and bytes (its stages' plus
+the gather of the output); the round is counted apart.
 
-``python3 chip_smoke.py --four-ranks`` runs phase 16 alone (after phases 1,
-2 and the build), for a machine with four cards, where it takes NCCL.
+``python3 chip_smoke.py --four-ranks`` runs phases 16 and 20 alone (after
+phases 1, 2 and the build), for a machine with four cards, where they take
+NCCL.
 
 Then one JSON line with each kernel entry point's launches on each path,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Any
@@ -717,13 +751,15 @@ def check_dispatch(port, dev) -> dict:
     return res
 
 
-def feed_line(port, x, processors, out: list, gate=None):
+def feed_line(port, x, processors, out: list, gate=None, context=None,
+              hold_at: int = 0):
     """Host feed of ``x`` (``gate``: a ``threading.Event`` the feed waits
-    for) -> ``processors`` -> host receive into ``out``."""
+    for before reading frame ``hold_at`` and on) -> ``processors`` -> host
+    receive into ``out``, in the mutable ``context`` when one is given."""
     pos = [0]
 
     def feed(block_size):
-        if gate is not None and not gate.wait(60):
+        if gate is not None and pos[0] >= hold_at and not gate.wait(60):
             raise RuntimeError("feed gate never opened")
         if pos[0] >= x.shape[1]:
             return None
@@ -736,7 +772,8 @@ def feed_line(port, x, processors, out: list, gate=None):
                                          channels=x.shape[0]),
             feed=feed),
         processors=processors,
-        sink=lambda m, b, p: port.Sink(receive=out.append))
+        sink=lambda m, b, p: port.Sink(receive=out.append),
+        **({} if context is None else {"context": context}))
 
 
 def config4_ir():
@@ -1370,23 +1407,29 @@ def packet_line(port, x, processors, out: list, seed: int):
 
 
 def run_mesh_pipe(port, mesh, make_ops, x, block: int, push=None,
-                  optimize: bool = False, packets=None):
-    """Stream ``x`` through ``Pipe(block, Line(make_ops(...)), mesh=mesh)``
-    with a host feed. ``push``: ``(op index, at_block)``: the op's
-    ``set_sos`` to the -3 dB peaking section, delivered before the feed
-    opens. Returns the sink's output, the synchronized wall time of the
-    stream (the pipe's build left out) and the pipe."""
+                  optimize: bool = False, packets=None, every: int = 16,
+                  before=None, out=None, context=None, hold_at: int = 0):
+    """Stream ``x`` through ``Pipe(block, Line(make_ops(...)), mesh=mesh,
+    host_sync_every=every)`` with a host feed. ``push``: ``(op index,
+    at_block)``: the op's ``set_sos`` to the -3 dB peaking section,
+    delivered before the feed opens. ``before(pipe, ops)`` runs after
+    ``start`` while the feed is held before frame ``hold_at`` (surgery,
+    untargeted pushes). ``out`` is the list the sink appends to and
+    ``context`` the line's mutable context. Returns the sink's output, the
+    synchronized wall time of the stream (the pipe's build left out) and
+    the pipe."""
     import torch
 
     from pipe_tpu_torch import parallel
 
     line_ops = make_ops(parallel)
-    out = []
+    out = [] if out is None else out
     gate = threading.Event()
     procs = [o.processor() for o in line_ops]
-    line = (feed_line(port, x, procs, out, gate) if packets is None
-            else packet_line(port, x, procs, out, packets))
-    p = port.Pipe(block, line, mesh=mesh, optimize=optimize)
+    line = (feed_line(port, x, procs, out, gate, context, hold_at)
+            if packets is None else packet_line(port, x, procs, out, packets))
+    p = port.Pipe(block, line, mesh=mesh, optimize=optimize,
+                  host_sync_every=every)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     p.start()
@@ -1395,6 +1438,8 @@ def run_mesh_pipe(port, mesh, make_ops, x, block: int, push=None,
         dest = p._executors[0].dest
         wait_until(lambda: dest.pending_targets() == [push[1]],
                    "the targeted push")
+    if before is not None:
+        before(p, line_ops)
     gate.set()
     p.wait(600)
     torch.cuda.synchronize()
@@ -1476,7 +1521,149 @@ def check_mesh_pipe_one_rank(port, dev, s15) -> dict:
             "rate": x.size / wall, "f64_db": f64_db, "first": first,
             "opt_db": opt_db, "opt_stages": n_opt, "opt_rate": x.size / wall_opt,
             "profile": prof,
-            "idle": 1 - prof["device_ms"] / (1e3 * wall / CHUNKS15)}
+            "idle": 1 - prof["device_ms"] / (1e3 * wall / CHUNKS15), "y": y}
+
+
+SURGERY_POS, SURGERY_AT = 4, 2  # live inserts of phases 19 and 20: before the mix
+
+
+def insert_sos():
+    """The section inserted live in phases 19 and 20: a peaking EQ at 2.5 kHz."""
+    from pipe_tpu_torch import ops
+
+    return ops.design_peaking_eq(SR_OUT, 2500, 1.2, 4.0)
+
+
+def inserter(handles: list, pos: int = SURGERY_POS, at_block=SURGERY_AT,
+             make=lambda sh: sh.Biquad(insert_sos())):
+    """A ``before`` of :func:`run_mesh_pipe`: insert ``make(parallel.sharded)``
+    at ``pos`` of line 0, adopted at ``at_block`` (held until the target is
+    in the line's mailbox) or, with ``at_block=None``, at the next block
+    boundary once the stream dispatched 2 blocks (held until the insert is
+    in the mailbox or adopted, so it lands on block 2 or 3). The handle
+    goes to ``handles``."""
+    def before(p, line_ops):
+        from pipe_tpu_torch import parallel
+
+        dest = p._executors[0].dest
+        if at_block is None:
+            wait_until(lambda: p.block_index() >= 2, "2 dispatched blocks")
+        handles.append(p.insert_processor(
+            0, pos, make(parallel.sharded).processor(), at_block=at_block))
+        if at_block is None:
+            # in the mailbox, or already taken from it by the executor
+            # (which then adopts it at once and completes the handle)
+            wait_until(lambda: dest._pending is not None or handles[-1].done(),
+                       "the insert's delivery")
+        else:
+            wait_until(lambda: dest.pending_targets() == [at_block],
+                       "the targeted insert")
+    return before
+
+
+def handle_error(h):
+    """The surgery handle's error once it completed (None: adopted)."""
+    require(h.wait(60), "the surgery handle completed")
+    return h.error
+
+
+def side_ops(parallel):
+    """The line that phase 19 adds live: a resampler and the EQ's peaking
+    section on 8 of the 64 channels."""
+    sh = parallel.sharded
+    return [sh.Resample(SR_OUT, SR_IN, 32), sh.Biquad(eq_sos()[0])]
+
+
+def streaming_insert(port, dev, x, block: int, at_block: int):
+    """The main path as a ``Line`` of the streaming ops (each EQ section an
+    op of its own) through ``Pipe`` without a mesh, with phase 19's section
+    inserted before the mix at ``at_block``: the reference of the mesh
+    pipes' inserts."""
+    from pipe_tpu_torch import ops
+
+    sos, out, gate = eq_sos(), [], threading.Event()
+    procs = [ops.FIR(ops.design_lowpass(255, 4000, SR_IN)).processor(),
+             ops.Resampler(SR_OUT, SR_IN).processor(),
+             ops.Biquad(sos[:1]).processor(), ops.Biquad(sos[1:]).processor(),
+             ops.ChannelMix(np.ones((2, CHANNELS)) / CHANNELS).processor()]
+    p = port.Pipe(block, feed_line(port, x, procs, out, gate), device=dev)
+    p.start()
+    h = p.insert_processor(0, SURGERY_POS, ops.Biquad(insert_sos()[None]).processor(),
+                           at_block=at_block)
+    dest = p._exec_of_route[0].dest
+    wait_until(lambda: dest.pending_targets() == [at_block], "the targeted insert")
+    gate.set()
+    p.wait(600)
+    require(handle_error(h) is None, f"the streaming insert failed: {h.error!r}")
+    return np.concatenate(out, axis=1)
+
+
+def check_mesh_pipe_surgery(port, dev, x, y) -> dict:
+    """Phase 19's live surgery on the 1x1 mesh (see the module docstring):
+    ``x`` is phase 15's samples, ``y`` phase 19's plain output."""
+    from pipe_tpu_torch import kernels, parallel
+    from pipe_tpu_torch.signal import snr_db
+
+    mesh = parallel.make_mesh(1, 1)
+    out_width = CHUNK15 * 160 // 147
+    plain = 2 * 2 * CHUNKS15
+    res = {}
+    for key, at in (("at_block", SURGERY_AT), ("untargeted", None)):
+        handles = []
+        kernels.reset_counts()
+        yi, _, _ = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK15,
+                                 before=inserter(handles, at_block=at),
+                                 hold_at=0 if at is not None else 2 * CHUNK15)
+        launches = kernels.launch_counts()
+        require(handle_error(handles[0]) is None,
+                f"the {key} insert failed: {handles[0].error!r}")
+        first = first_change(y, yi)
+        landed = first // out_width
+        require(first % out_width == 0 and (landed == at if at is not None
+                                            else 2 <= landed <= 3),
+                f"the {key} insert first changes sample {first}")
+        want = plain + 2 * (CHUNKS15 - landed)
+        require(launches["iir_tiles"] == want and launches["biquad_section"] == 0,
+                f"the {key} insert: iir_tiles launched {launches['iir_tiles']} "
+                f"times, expected {want}")
+        res[key] = {"first": first, "landed": landed,
+                    "launches": launches["iir_tiles"], "y": yi}
+    kernels.reset_counts()
+    y_ref = streaming_insert(port, dev, x, CHUNK15, SURGERY_AT)
+    res["ref_sections"] = kernels.launch_counts()["biquad_section"]
+    want = 2 * CHUNKS15 + (CHUNKS15 - SURGERY_AT)
+    require(res["ref_sections"] == want,
+            f"the no-mesh insert launched biquad_section {res['ref_sections']} "
+            f"times, expected {want}")
+    res["db"] = float(snr_db(y_ref, res["at_block"]["y"]))
+    require(res["db"] >= 100, f"the 1x1 insert vs the no-mesh Pipe's {res['db']:.1f} dB")
+
+    # a second line joining the running sync group at block 2
+    xs = x[:8, :2 * CHUNK15]
+    side_out, handles = [], []
+    ctx = port.mutable.mutable()
+
+    def add(p, line_ops):
+        procs = [o.processor() for o in side_ops(parallel)]
+        handles.append(p.add_line(feed_line(port, xs, procs, side_out, context=ctx),
+                                  at_block=SURGERY_AT))
+        dest = p._executors[0].dest
+        wait_until(lambda: dest.pending_targets() == [SURGERY_AT], "the added line")
+
+    kernels.reset_counts()
+    y_main, _, _ = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK15,
+                                 context=ctx, before=add)
+    launches = kernels.launch_counts()["iir_tiles"]
+    require(handle_error(handles[0]) is None, f"add_line failed: {handles[0].error!r}")
+    require(np.array_equal(y_main, y), "the main line with a line added beside it")
+    alone, _, _ = run_mesh_pipe(port, mesh, side_ops, xs, CHUNK15)
+    side = np.concatenate(side_out, axis=1)
+    require(side.shape == alone.shape and np.array_equal(side, alone),
+            "the added line's output equals that line run alone")
+    want = plain + 2 * 2
+    require(launches == want, f"add_line run: iir_tiles {launches}, expected {want}")
+    res["add_line"] = {"launches": launches, "shape": side.shape}
+    return res
 
 
 def input4():
@@ -1716,60 +1903,252 @@ def rank_main(rank: int, world: int, port_no: int, transport: str, out_dir: str)
         for i, leaf in enumerate(tree_flatten(tree_to_numpy(chain.carries))[0]):
             saved[f"{key}/carry{i}"] = leaf
         chain_comm = {k: list(v) for k, v in mesh.stats.items()}
-        rank_pipe(port, mesh, f"{key}/pipe", saved, main_path_ops, x, CHUNK16,
-                  y, chain_comm, push=(2, 2))
+        y_pipe = rank_pipe(port, mesh, f"{key}/pipe", saved, main_path_ops, x,
+                           CHUNK16, y, chain_comm, push=(2, 2))
         rank_extra(rank, mesh, key, saved, port)
+        rank_rounds(rank, port, mesh, key, saved, x, y_pipe)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **saved)
     parallel.shutdown()
 
 
 def rank_pipe(port, mesh, key: str, saved: dict, make_ops, x, block: int,
-              y_chain, chain_comm: dict, push=None) -> None:
+              y_chain, chain_comm: dict, push=None):
     """One rank's run of a ``Line`` of sharded ops through ``Pipe(mesh=)``,
     beside the chain's run of the same stages (its gathered output
     ``y_chain`` and the collectives ``chain_comm`` of that run): whether the
     sink holds the chain's bits, the launch counts, the collectives by name,
-    the wall and the host seconds inside collectives; with ``push`` a second
-    run with the targeted retune: its digest and first changed sample."""
-    import hashlib
-
+    the sweeps, the wall and the host seconds inside collectives; with
+    ``push`` a second run with the targeted retune: its digest and first
+    changed sample. Returns the sink's output."""
     from pipe_tpu_torch import kernels
 
-    run_mesh_pipe(port, mesh, make_ops, x[:, :block], block)  # warm-up
+    # a health round at the end of the stream only: the least a mesh pipe
+    # of several ranks makes (one no-op sweep pads to it)
+    every = x.shape[1] // block + 1
+    run_mesh_pipe(port, mesh, make_ops, x[:, :block], block, every=1)  # warm-up
     mesh.reset_stats()
     kernels.reset_counts()
-    y, wall, p = run_mesh_pipe(port, mesh, make_ops, x, block)
+    y, wall, p = run_mesh_pipe(port, mesh, make_ops, x, block, every=every)
     saved[f"{key}/equal"] = bool(y.shape == y_chain.shape
                                  and np.array_equal(y, y_chain))
     saved[f"{key}/launches"] = kernels.launch_counts()["iir_tiles"]
     saved[f"{key}/sections"] = kernels.launch_counts()["biquad_section"]
+    saved[f"{key}/sweeps"] = p.block_index()
     saved[f"{key}/wall"] = wall
     saved[f"{key}/comm"] = json.dumps({k: list(v) for k, v in mesh.stats.items()},
                                       sort_keys=True)
     saved[f"{key}/chain_comm"] = json.dumps(chain_comm, sort_keys=True)
     saved[f"{key}/comm_seconds"] = sum(mesh.seconds.values())
     if push is not None:
-        y_push, _, _ = run_mesh_pipe(port, mesh, make_ops, x, block, push=push)
-        saved[f"{key}/push_sha"] = hashlib.sha1(
-            np.ascontiguousarray(y_push).tobytes()).hexdigest()
+        y_push, _, _ = run_mesh_pipe(port, mesh, make_ops, x, block, push=push,
+                                     every=every)
+        saved[f"{key}/push_sha"] = digest(y_push)
         saved[f"{key}/push_first"] = first_change(y, y_push)
+    return y
 
 
-def check_rank_pipes(ranks, key: str, want_launches: int, n_samples: int,
-                     push_first=None) -> dict:
-    """What every rank saved in :func:`rank_pipe`, held to the contract."""
+class FailingSink(list):
+    """A sink's list that raises when it is handed block ``at`` (never
+    when ``at`` is None)."""
+
+    def __init__(self, at=None):
+        super().__init__()
+        self.at = at
+
+    def append(self, block) -> None:
+        if self.at is not None and len(self) == self.at:
+            raise IOError(f"sink failed at block {self.at}")
+        super().append(block)
+
+
+ABORT_RANK, ABORT_AT = 2, 2  # phase 20 (c): this rank's sink fails at this block
+EXCHANGES = 200  # phase 20 (a): health exchanges timed back to back
+
+
+def rank_rounds(rank: int, port, mesh, key: str, saved: dict, x, y) -> None:
+    """One rank's share of phase 20 on ``mesh`` (see the module docstring):
+    the main path in blocks of ``CHUNK16`` with health rounds every
+    dispatch, an untargeted ``set_sos``, an insert at block 2, a
+    width-changing insert that breaks the downstream resampler's shape
+    rule, and the abort that ``ABORT_RANK``'s sink starts. ``y`` is phase
+    16's output of the same pipe."""
+    from pipe_tpu_torch import kernels
+    from pipe_tpu_torch.parallel import mesh as mesh_mod
+
+    k = f"{key}/p20"
+    mesh.reset_stats()
+    kernels.reset_counts()
+    ya, wall, p = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK16, every=1)
+    saved[f"{k}/a/equal"] = bool(np.array_equal(ya, y))
+    saved[f"{k}/a/launches"] = kernels.launch_counts()["iir_tiles"]
+    saved[f"{k}/a/sweeps"] = p.block_index()
+    saved[f"{k}/a/health"] = list(mesh.stats.get("health", [0, 0]))
+    saved[f"{k}/a/health_s"] = mesh.seconds.get("health", 0.0)
+    saved[f"{k}/a/wall"] = wall
+    # the exchange alone: a round inside a stream also waits for the
+    # slowest rank to reach it; back to back the ranks arrive together
+    times = []
+    for _ in range(EXCHANGES):
+        t0 = time.perf_counter()
+        mesh.health_allgather(np.zeros(2, np.int32))
+        times.append(time.perf_counter() - t0)
+    saved[f"{k}/a/exchange_s"] = float(np.median(times))
+
+    # pushed on every rank before the feed opens: every rank holds it at
+    # the first round (block 1), which targets the round after (block 2)
+    yb, _, _ = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK16, every=1,
+                             before=lambda p, ops: p.push(
+                                 ops[2].set_sos(eq_sos(-3.0)[0])))
+    saved[f"{k}/b/sha"] = digest(yb)
+    saved[f"{k}/b/first"] = first_change(y, yb)
+
+    handles = []
+    kernels.reset_counts()
+    yd, _, _ = run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK16, every=1,
+                             before=inserter(handles))
+    saved[f"{k}/d/launches"] = kernels.launch_counts()["iir_tiles"]
+    saved[f"{k}/d/error"] = repr(handle_error(handles[0]))
+    saved[f"{k}/d/sha"] = digest(yd)
+    saved[f"{k}/d/first"] = first_change(y, yd)
+    if rank == 0:
+        saved[f"{k}/d/y"] = yd
+
+    handles = []
+    ye, _, _ = run_mesh_pipe(
+        port, mesh, main_path_ops, x, CHUNK16, every=1,
+        before=inserter(handles, pos=0,
+                        make=lambda sh: sh.Resample(SR_OUT, SR_IN, 32)))
+    err = handle_error(handles[0])
+    saved[f"{k}/e/error"] = [type(err).__name__, str(err)]
+    saved[f"{k}/e/equal"] = bool(np.array_equal(ye, y))
+
+    saved[f"{k}/c/group_timeout"] = mesh_mod.GROUP_TIMEOUT_S
+    t0 = time.perf_counter()
+    try:
+        run_mesh_pipe(port, mesh, main_path_ops, x, CHUNK16, every=1,
+                      out=FailingSink(ABORT_AT if rank == ABORT_RANK else None))
+        saved[f"{k}/c/error"] = ["", "", ""]
+    except Exception as e:  # noqa: BLE001 - held to the contract by the parent
+        cause = e.__cause__
+        saved[f"{k}/c/error"] = [type(e).__name__, str(e),
+                                 type(cause).__name__ if cause else ""]
+    saved[f"{k}/c/wall"] = time.perf_counter() - t0
+
+
+def check_rounds(ranks, key: str, y_ins, push_sha: list) -> dict:
+    """Phase 20 on one mesh, from what the ranks saved in
+    :func:`rank_rounds`; ``y_ins`` is the parent's 1x1 ``Pipe(mesh=)`` with
+    the same insert, ``push_sha`` every rank's digest of phase 16's
+    targeted push."""
+    from pipe_tpu_torch.signal import snr_db
+
+    k, world = f"{key}/p20", len(ranks)
+    out_width = CHUNK16 * 160 // 147
+    rounds = rounds_predicted(CHUNKS16, 1)
+    # a round after each block, then one no-op sweep pads to the closing
+    # round; every sweep launches iir_tiles 2 a section
+    sweeps = CHUNKS16 + 1
+    want = 2 * 2 * sweeps
+    res = {"rounds": rounds}
     for i, r in enumerate(ranks):
+        require(bool(r[f"{k}/a/equal"]), f"{k} (a), rank {i}: the output with a "
+                                         "round every dispatch differs from phase 16's")
+        require(int(r[f"{k}/a/launches"]) == want
+                and int(r[f"{k}/a/sweeps"]) == sweeps,
+                f"{k} (a), rank {i}: iir_tiles {r[f'{k}/a/launches']} in "
+                f"{r[f'{k}/a/sweeps']} sweeps, expected {want} in {sweeps}")
+        health = [int(v) for v in r[f"{k}/a/health"]]
+        require(health == [rounds, rounds * world * 2 * 4],
+                f"{k} (a), rank {i}: health rounds [calls, bytes] {health}, "
+                f"predicted {rounds}")
+        require(str(r[f"{k}/b/sha"]) == str(push_sha[i])
+                and int(r[f"{k}/b/first"]) == SURGERY_AT * out_width,
+                f"{k} (b), rank {i}: the untargeted push first changed sample "
+                f"{r[f'{k}/b/first']}, or its output differs from the targeted "
+                "push at block 2")
+        require(str(r[f"{k}/d/error"]) == "None"
+                and int(r[f"{k}/d/first"]) == SURGERY_AT * out_width
+                and int(r[f"{k}/d/launches"]) == want + 2 * (sweeps - SURGERY_AT),
+                f"{k} (d), rank {i}: insert {r[f'{k}/d/error']}, first changed "
+                f"sample {r[f'{k}/d/first']}, iir_tiles {r[f'{k}/d/launches']}")
+        err = [str(v) for v in r[f"{k}/e/error"]]
+        require(err[0] == "ValueError" and "shape rule" in err[1]
+                and bool(r[f"{k}/e/equal"]),
+                f"{k} (e), rank {i}: {err}; output equal to the plain run: "
+                f"{bool(r[f'{k}/e/equal'])}")
+        err = [str(v) for v in r[f"{k}/c/error"]]
+        wall = float(r[f"{k}/c/wall"])
+        require(float(r[f"{k}/c/group_timeout"]) == 60.0 and wall < 15.0,
+                f"{k} (c), rank {i}: wait ended after {wall:.2f} s")
+        if i == ABORT_RANK:
+            require(err[0] == "RunError" and "sink failed" in err[1],
+                    f"{k} (c), rank {i}: {err}")
+        else:
+            require(err[0] == "RunError" and err[2] == "PeerAbortError",
+                    f"{k} (c), rank {i}: {err}")
+    require(len({str(r[f"{k}/d/sha"]) for r in ranks}) == 1,
+            f"{k} (d): the ranks' outputs differ")
+    yd = ranks[0][f"{k}/d/y"]
+    res["insert_db"] = float(snr_db(y_ins, yd))
+    require(yd.shape == y_ins.shape and res["insert_db"] >= 100,
+            f"{k} (d): vs the 1x1 Pipe(mesh=) with the same insert "
+            f"{res['insert_db']:.1f} dB")
+    res["launches"] = int(ranks[0][f"{k}/a/launches"])
+    res["insert_launches"] = int(ranks[0][f"{k}/d/launches"])
+    res["sweeps"] = int(ranks[0][f"{k}/a/sweeps"])
+    res["round_us"] = [1e6 * float(r[f"{k}/a/health_s"]) / rounds for r in ranks]
+    res["exchange_us"] = [1e6 * float(r[f"{k}/a/exchange_s"]) for r in ranks]
+    res["wall"] = max(float(r[f"{k}/a/wall"]) for r in ranks)
+    res["abort_s"] = [float(r[f"{k}/c/wall"]) for r in ranks]
+    res["refusal"] = str(ranks[0][f"{k}/e/error"][1])
+    return res
+
+
+def digest(y) -> str:
+    import hashlib
+
+    return hashlib.sha1(np.ascontiguousarray(y).tobytes()).hexdigest()
+
+
+def rounds_predicted(n_blocks: int, every: int) -> int:
+    """Health rounds of a stream of ``n_blocks`` dispatches that ends
+    cleanly: one at every multiple of ``every`` it dispatches, then one
+    after the no-op sweeps that pad the end of the stream to the next
+    multiple (:mod:`pipe_tpu_torch.parallel.hostsync`)."""
+    return n_blocks // every + 1
+
+
+def check_rank_pipes(ranks, key: str, per_sweep: int, n_samples: int,
+                     chunks: int, push_first=None) -> dict:
+    """What every rank saved in :func:`rank_pipe`, held to the contract.
+    Every sweep of a mesh pipe computes a block and makes the collectives
+    of one chunk of the chain, the no-op sweeps that pad the stream's end
+    to its last health round too: ``iir_tiles`` is launched ``per_sweep``
+    times a sweep, the run's data collectives are the chain's run's, by
+    name, calls and bytes, times ``sweeps / chunks``, and the health rounds
+    are counted apart."""
+    world = len(ranks)
+    for i, r in enumerate(ranks):
+        sweeps = int(r[f"{key}/sweeps"])
         require(bool(r[f"{key}/equal"]),
                 f"{key}, rank {i}: the sink's output differs from the chain's")
-        require(int(r[f"{key}/launches"]) == want_launches
+        require(int(r[f"{key}/launches"]) == per_sweep * sweeps
                 and int(r[f"{key}/sections"]) == 0,
                 f"{key}, rank {i}: iir_tiles launched {r[f'{key}/launches']} "
-                f"times, expected {want_launches}")
-        require(str(r[f"{key}/comm"]) == str(r[f"{key}/chain_comm"]),
-                f"{key}, rank {i}: collectives {r[f'{key}/comm']}, the chain's "
-                f"run made {r[f'{key}/chain_comm']}")
+                f"times in {sweeps} sweeps, expected {per_sweep} a sweep")
+        chain = json.loads(str(r[f"{key}/chain_comm"]))
+        comm = json.loads(str(r[f"{key}/comm"]))
+        want = {k: [c * sweeps // chunks, b * sweeps // chunks]
+                for k, (c, b) in chain.items()}
+        want["health"] = [1, world * 2 * 4]
+        require(sweeps == chunks + 1 and comm == want
+                and all(c % chunks == 0 and b % chunks == 0
+                        for c, b in chain.values()),
+                f"{key}, rank {i}: collectives {comm} in {sweeps} sweeps, the "
+                f"chain's run made {chain} in {chunks} chunks")
     out = {"launches": [int(r[f"{key}/launches"]) for r in ranks],
            "comm": json.loads(str(ranks[0][f"{key}/comm"])),
+           "sweeps": int(ranks[0][f"{key}/sweeps"]),
            "wall": max(float(r[f"{key}/wall"]) for r in ranks),
            "comm_seconds": [float(r[f"{key}/comm_seconds"]) for r in ranks]}
     out["rate"] = n_samples / out["wall"]
@@ -1788,14 +2167,11 @@ def rank_extra(rank: int, mesh, key: str, saved: dict, port) -> None:
     chain, the same line through ``Pipe(mesh=)``, and phase 18's two chains.
     Rank 0 keeps the gathered outputs, every rank their digests, launch
     counts, collectives and carries."""
-    import hashlib
-
     from pipe_tpu_torch import kernels, parallel
     from pipe_tpu_torch.convert import tree_to_numpy
 
     def keep(name, y):
-        saved[f"{key}/{name}/sha"] = hashlib.sha1(
-            np.ascontiguousarray(y).tobytes()).hexdigest()
+        saved[f"{key}/{name}/sha"] = digest(y)
         if rank == 0:
             saved[f"{key}/{name}/y"] = y
 
@@ -1952,6 +2328,12 @@ def check_four_ranks(dev, count: int) -> dict:
     zfdl_ref = ref4.global_carries()[0]["zfdl"]
     port = import_port()
     streamed = {name: streamed18(port, name) for name in CHAINS18}
+    # phase 20 (d)'s reference: the same insert at the same sample on one rank
+    handles = []
+    y_ins, _, _ = run_mesh_pipe(port, parallel.make_mesh(1, 1), main_path_ops,
+                                x, CHUNK16, before=inserter(handles))
+    require(handle_error(handles[0]) is None,
+            f"the 1x1 insert failed: {handles[0].error!r}")
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port_no = sock.getsockname()[1]
@@ -2001,10 +2383,13 @@ def check_four_ranks(dev, count: int) -> dict:
                                            other[f"{key}/carry{i}"]),
                             f"mesh {key}: carry {i} differs inside a channel row")
         res.setdefault("pipes", {})[key] = {
-            "main": check_rank_pipes(ranks, f"{key}/pipe", want, x.size,
+            "main": check_rank_pipes(ranks, f"{key}/pipe", 2 * 2, x.size,
+                                     CHUNKS16,
                                      push_first=2 * (CHUNK16 * 160 // 147)),
-            "c4": check_rank_pipes(ranks, f"{key}/c4/pipe",
-                                   2 * (x4.shape[1] // CHUNK4S), C4 * N4)}
+            "c4": check_rank_pipes(ranks, f"{key}/c4/pipe", 2, C4 * N4,
+                                   x4.shape[1] // CHUNK4S)}
+        res.setdefault("rounds", {})[key] = check_rounds(
+            ranks, key, y_ins, [r[f"{key}/pipe/push_sha"] for r in ranks])
         wall = max(float(r[f"{key}/wall"]) for r in ranks)
         res["meshes"][key] = {"launches": launches, "db": db, "wall": wall,
                                "rate": x.size / wall, "carries": n_carries,
@@ -2055,8 +2440,9 @@ def say_four_ranks(s16: dict, card: str) -> None:
                 f"main path in blocks of {CHUNK16}: the sink equals the chain's "
                 f"gathered output bit for bit on all 4 ranks, iir_tiles launches "
                 f"per rank {m['launches']}, collectives of the run [calls, "
-                f"bytes] {m['comm']} (the chain's run made the same, its "
-                f"gather included), {m['wall']:.4f} s wall = {m['rate']:.4g} "
+                f"bytes] {m['comm']} in {m['sweeps']} sweeps (the chain's "
+                f"per chunk, its gather included, for each sweep, and the "
+                f"round), {m['wall']:.4f} s wall = {m['rate']:.4g} "
                 f"samples/s (the chain {s16['meshes'][k]['rate']:.4g}), host "
                 "seconds inside collectives per rank "
                 + "/".join(f"{t:.4f}" for t in m["comm_seconds"])
@@ -2070,11 +2456,36 @@ def say_four_ranks(s16: dict, card: str) -> None:
                   "collectives per rank "
                 + "/".join(f"{t:.4f}" for t in c4["comm_seconds"])
                 + f"; on {card}")
+    for k, v in s16["rounds"].items():
+        m = s16["pipes"][k]["main"]
+        say(20, f"mesh {k}, transport {s16['transport']}, main path in "
+                f"{CHUNKS16} blocks of {CHUNK16}: (a) host_sync_every=1: "
+                f"{v['rounds']} health rounds a rank as predicted, output equal "
+                f"to phase 16's bit for bit, iir_tiles {v['launches']} a rank, "
+                f"{v['sweeps']} sweeps, us per round per rank (the wait for "
+                f"the slowest rank included) "
+                + "/".join(f"{u:.1f}" for u in v["round_us"])
+                + f", the exchange alone back to back (median of {EXCHANGES}) "
+                + "/".join(f"{u:.1f}" for u in v["exchange_us"])
+                + f", {v['wall']:.4f} s wall = {CHUNKS16 * CHUNK16 * CHANNELS / v['wall']:.4g} "
+                  f"samples/s (one round at the end: {m['rate']:.4g}); (b) an "
+                  f"untargeted set_sos landed on block {SURGERY_AT} on every rank, "
+                  f"equal to the targeted push there bit for bit; (c) rank "
+                  f"{ABORT_RANK}'s sink failed at block {ABORT_AT}: every rank's "
+                  f"wait raised (peers: RunError from PeerAbortError) after "
+                  + "/".join(f"{t:.3f}" for t in v["abort_s"])
+                + f" s, group timeout 60 s; (d) a sharded.Biquad inserted "
+                  f"at_block={SURGERY_AT}: first change at sample "
+                  f"{SURGERY_AT * (CHUNK16 * 160 // 147)} on every rank, ranks "
+                  f"equal, iir_tiles {v['insert_launches']} a rank, vs the 1x1 "
+                  f"Pipe(mesh=) {v['insert_db']:.1f} dB; (e) a Resample inserted "
+                  f"at the head refused: {v['refusal'][:90]}..., output equal to "
+                  f"the plain run; on {card}")
 
 
 def main(only_four_ranks: bool = False) -> None:
     """Every phase; with ``only_four_ranks`` (``--four-ranks``, for a machine
-    with four cards) phases 1, 2 and 4 and then phase 16 alone."""
+    with four cards) phases 1, 2 and 4 and then phases 16 and 20 alone."""
     import torch
 
     say(1, f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2328,6 +2739,17 @@ def main(only_four_ranks: bool = False) -> None:
             + ", ".join(f"{k} {v:.3f} ms" for k, v in p19["ms"].items())
             + f", {p19['launches_per_block']:.0f} launches, device idle "
               f"{100 * s19['idle']:.1f} % of the unprofiled wall a block; on {card}")
+    s19s = check_mesh_pipe_surgery(port, dev, s15["x"], s19["y"])
+    say(19, f"live surgery on Pipe(mesh=1x1): a sharded.Biquad inserted before "
+            f"the mix at_block={SURGERY_AT} first changes sample "
+            f"{s19s['at_block']['first']}, iir_tiles {s19s['at_block']['launches']}, "
+            f"vs the Pipe without a mesh doing the same insert {s19s['db']:.1f} dB "
+            f"(its biquad_section {s19s['ref_sections']}); inserted with no "
+            f"at_block: landed on block {s19s['untargeted']['landed']}, iir_tiles "
+            f"{s19s['untargeted']['launches']}; a line of "
+            f"{s19s['add_line']['shape']} added at_block={SURGERY_AT} in the sync "
+            f"group equals that line run alone, iir_tiles "
+            f"{s19s['add_line']['launches']}; on {card}")
 
     main_shape = KERNEL_SHAPES[-1]
     section_paths = {"run (phase 7)": launches["biquad_section"],
@@ -2344,11 +2766,22 @@ def main(only_four_ranks: bool = False) -> None:
                         v["c4"]["launches"][0] for k, v in s16["extra"].items()})
     tiles_paths["ShardedChain config 4 1x1 (phase 17)"] = s17["launches"]
     tiles_paths["Pipe(mesh=1x1) config 5 (phase 19)"] = s19["launches"]
+    for what in ("at_block", "untargeted"):
+        tiles_paths[f"Pipe(mesh=1x1) insert_processor, {what} (phase 19)"] = (
+            s19s[what]["launches"])
+    tiles_paths["Pipe(mesh=1x1) add_line (phase 19)"] = s19s["add_line"]["launches"]
+    section_paths["Pipe without a mesh, phase 19's insert reference"] = (
+        s19s["ref_sections"])
     for k, v in s16["pipes"].items():
         tiles_paths[f"Pipe(mesh={k}) main path, each of 4 ranks (phase 16)"] = (
             v["main"]["launches"][0])
         tiles_paths[f"Pipe(mesh={k}) config 4, each of 4 ranks (phase 16)"] = (
             v["c4"]["launches"][0])
+    for k, v in s16["rounds"].items():
+        tiles_paths[f"Pipe(mesh={k}) rounds every dispatch, each of 4 ranks "
+                    "(phase 20 a)"] = v["launches"]
+        tiles_paths[f"Pipe(mesh={k}) insert_processor, each of 4 ranks "
+                    "(phase 20 d)"] = v["insert_launches"]
 
     def kernel_entry(name, by_path, results):
         r = results[main_shape]

@@ -28,19 +28,32 @@ take one product or three consistently within a call. The recursive paths
 the knob at all: they compute in float64 or elementwise and give the same
 bits under every name.
 
+A line keeps the name it started with, as a JAX line keeps the precision
+its step was traced with: every executor reads the name once when its run
+starts and binds it to each of its sweeps (:func:`precision_bound`, a
+per-thread binding that the helpers read before the process-wide name), so
+a :func:`set_matmul_precision` or a :func:`matmul_precision_scope` in
+another thread leaves a running pipe's choice between one product and
+three alone.
+
 The knobs behind the names are torch's process-wide ``fp32_precision``
-settings of the two backends; they take effect at the next call and change
-nothing on the CPU. Process-wide means every thread: a
-:func:`matmul_precision_scope` entered in one thread changes the precision
-of products that the ``Pipe``'s executor threads compute while it is open,
-and two scopes open at once in two threads restore in whatever order they
-exit. Set the precision before starting pipes, or from one thread only.
+settings of the two backends (TF32 for ``'default'`` and ``'high'``, IEEE
+for ``'highest'``); they take effect at the next call and change nothing on
+the CPU. They stay process-wide, and a name set in one thread moves them
+for every thread while it holds. So on the card a ``'highest'`` product
+that finds them at TF32 takes the three products of ``'high'``: a line
+started under ``'highest'`` computes in IEEE FP32, or at worst at
+``'high'``, never in single TF32 products. A ``'default'`` line's single
+products run in IEEE FP32 while another thread holds ``'highest'``. Two
+scopes open at once in two threads restore in whatever order they exit.
+Set the precision before starting pipes, or from one thread only.
 """
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +63,7 @@ _NAMED = {"default": "tf32", "high": "tf32", "highest": "ieee"}
 
 _matmul_precision = "highest"
 _default_device = None  # set by set_default_device; None: the current card
+_bound = threading.local()  # .name: this thread's bound precision name
 
 
 def set_default_device(device) -> None:
@@ -112,8 +126,25 @@ def set_matmul_precision(p: str) -> None:
 
 
 def matmul_precision() -> str:
-    """The current precision name."""
-    return _matmul_precision
+    """The current precision name: the one bound to this thread by
+    :func:`precision_bound`, else the process-wide one."""
+    return getattr(_bound, "name", None) or _matmul_precision
+
+
+@contextmanager
+def precision_bound(name: Optional[str]) -> Iterator[None]:
+    """Make ``name`` this thread's precision name while the block runs
+    (``None`` binds nothing). An executor binds the name its run started
+    with around every sweep; the backends' flags are not touched."""
+    if name is None:
+        yield
+        return
+    prev = getattr(_bound, "name", None)
+    _bound.name = name
+    try:
+        yield
+    finally:
+        _bound.name = prev
 
 
 @contextmanager
@@ -145,9 +176,15 @@ def _split_tf32(a):
 def _bilinear(fn, a, b):
     """``fn(a, b)`` for a bilinear ``fn`` at the current precision: one call
     under ``'highest'`` and ``'default'`` (the backends' flags decide how it
-    is computed on the card), three under ``'high'``. The name is read once,
-    so a change made by another thread cannot mix the two within a call."""
-    if _matmul_precision != "high" or a.dtype is not torch.float32:
+    is computed on the card), three under ``'high'``, and three under
+    ``'highest'`` on the card while another thread holds the flags at TF32.
+    The name (this thread's bound one, else the process-wide one) is read
+    once, so a change made by another thread cannot mix the two within a
+    call."""
+    name = matmul_precision()
+    if a.dtype is not torch.float32 or not (
+            name == "high" or (name == "highest" and a.is_cuda
+                               and not fp32_pinned())):
         return fn(a, b)
     a_hi, a_lo = _split_tf32(a)
     b_hi, b_lo = _split_tf32(b)

@@ -32,14 +32,15 @@ line-for-line counterpart of the JAX package's. What follows from it:
   global shapes only, so all ranks raise alike; groups carry a timeout, so
   a rank whose peer died raises instead of hanging.
 
-Ported: ``mesh``, ``meshctx``, ``distributed``, ``halo``, all of ``chain``
-(the ``ShardedChain`` with the 22 stages of the JAX package) and
-``components``, exported as ``sharded``: the 22 op classes that put those
-stages behind ``Line``/``Pipe(mesh=...)``/``run(mesh=...)``. Not ported:
-``hostsync`` (health rounds, abort padding, the agreement that lands an
-untargeted push on the same block on every rank), so on a mesh larger than
-1x1 a push must carry ``at_block``, live surgery is refused, and a rank
-that fails alone costs its peers the group timeout.
+Every module of the JAX package's ``parallel`` is ported: ``mesh``,
+``meshctx``, ``distributed``, ``halo``, all of ``chain`` (the
+``ShardedChain`` with the 22 stages of the JAX package), ``components``,
+exported as ``sharded`` (the 22 op classes that put those stages behind
+``Line``/``Pipe(mesh=...)``/``run(mesh=...)``), and ``hostsync``: the
+aligned health rounds of a mesh ``Pipe``, with which a rank that fails, is
+stopped or pushes late ends every rank's run at the next round instead of
+the group timeout, an untargeted push lands on the same block on every
+rank, and live surgery on a mesh line adopts at the same block everywhere.
 """
 
 from pipe_tpu_torch.parallel.mesh import make_mesh, Mesh, P, CH_AXIS, TIME_AXIS
@@ -52,6 +53,7 @@ from pipe_tpu_torch.parallel.distributed import (
 )
 from pipe_tpu_torch.parallel.meshctx import mesh_scope, current_mesh
 from pipe_tpu_torch.parallel import components as sharded
+from pipe_tpu_torch.parallel import hostsync
 from pipe_tpu_torch.parallel.chain import (
     ShardedChain,
     Stage,
@@ -94,6 +96,7 @@ __all__ = [
     "mesh_scope",
     "current_mesh",
     "sharded",
+    "hostsync",
     "ShardedChain",
     "Stage",
     "GainStage",

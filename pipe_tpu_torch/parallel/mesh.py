@@ -7,10 +7,12 @@ time_shards)``: time last, so neighbouring ranks are neighbours in time and
 exchange halos. A 1x1 mesh needs no process group. A larger one takes the
 first ``channel_shards * time_shards`` ranks of the group that
 :func:`pipe_tpu_torch.parallel.initialize` formed, and owns the two
-sub-groups a rank needs: its time row and its channel column. Every rank of
-the world calls :func:`make_mesh` with the same shape (``new_group`` is
-itself a collective); a rank beyond the mesh gets a mesh whose ``member`` is
-False and takes part in nothing further.
+sub-groups a rank needs: its time row and its channel column, and a gloo
+group of all its ranks for the health rounds of a mesh pipe
+(:meth:`Mesh.health_allgather`). Every rank of the world calls
+:func:`make_mesh` with the same shape (``new_group`` is itself a
+collective); a rank beyond the mesh gets a mesh whose ``member`` is False
+and takes part in nothing further.
 
 The collectives (:meth:`Mesh.all_gather`, :meth:`Mesh.all_reduce`,
 :meth:`Mesh.broadcast`, :meth:`Mesh.shift_right`, :meth:`Mesh.all_to_all`)
@@ -35,6 +37,7 @@ import datetime
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -72,7 +75,7 @@ class Mesh:
     """A ``(ch, time)`` mesh as one rank sees it. Built by :func:`make_mesh`."""
 
     def __init__(self, channel_shards: int, time_shards: int, rank: int,
-                 transport: Optional[str], groups: dict):
+                 transport: Optional[str], groups: dict, health=None):
         self.shape = {CH_AXIS: channel_shards, TIME_AXIS: time_shards}
         self.size = channel_shards * time_shards
         self.rank = rank
@@ -80,6 +83,9 @@ class Mesh:
         self.transport = transport  # None for a 1x1 mesh: nothing crosses
         self._index = {CH_AXIS: rank // time_shards, TIME_AXIS: rank % time_shards}
         self._groups = groups  # axis -> (process group, [global ranks])
+        # a gloo group of the mesh's ranks that carries the health rounds
+        # alone (None for a 1x1 mesh)
+        self._health = health
         self.stats: Dict[str, List[int]] = {}  # collective -> [calls, bytes]
         self.seconds: Dict[str, float] = {}  # collective -> host time inside
 
@@ -251,6 +257,20 @@ class Mesh:
             return torch.zeros_like(x)
         return self._stage_in(got, x)
 
+    def health_allgather(self, row) -> np.ndarray:
+        """Every rank's ``row`` (a few int32 on the host) as an ``(n,
+        len(row))`` array in rank order: the exchange of a health round
+        (:mod:`pipe_tpu_torch.parallel.hostsync`). It runs over the mesh's
+        own gloo group whatever the transport, so it never waits for the
+        stream and never interleaves with a data collective, and it is
+        counted in :attr:`stats` as ``"health"``."""
+        started = time.perf_counter()
+        t = torch.as_tensor(np.ascontiguousarray(row, np.int32)).reshape(-1)
+        out = torch.empty((self.size, t.numel()), dtype=torch.int32)
+        dist.all_gather_into_tensor(out.view(-1), t, group=self._health)
+        self._count("health", out.numel() * out.element_size(), started)
+        return out.numpy()
+
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The transpose over ``axis``: ``x`` has the axis size on dimension
         0, and position ``i`` gets slice ``i`` of every rank's ``x``, stacked
@@ -321,5 +341,11 @@ def make_mesh(channel_shards: int = 1, time_shards: int = 1, devices=None) -> Me
                 g = dist.new_group(ranks, timeout=timeout)
                 if rank in ranks:
                     groups[axis] = (g, ranks)
-        _meshes[key] = Mesh(channel_shards, time_shards, rank, _transport, groups)
+        # the health rounds' group: gloo under every transport, and a group
+        # of its own under gloo too, so that a round never interleaves
+        # with a data collective
+        health = dist.new_group(list(range(n)), backend="gloo",
+                                timeout=timeout)
+        _meshes[key] = Mesh(channel_shards, time_shards, rank, _transport,
+                            groups, health if rank < n else None)
     return _meshes[key]

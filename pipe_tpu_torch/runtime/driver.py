@@ -81,7 +81,9 @@ def run(block_size: int, *lines: Line, stats=None, lookahead: int = 1,
     sharded over it, as :class:`~pipe_tpu_torch.runtime.pipe.Pipe` does:
     every rank of the mesh calls ``run`` with the same lines and the same
     stream, ``block_size`` is the global block, and a block size that does
-    not fit the mesh is aggregated.
+    not fit the mesh is aggregated. ``run`` takes no health rounds (as in
+    the JAX package): nothing can be pushed into it, and a rank that fails
+    leaves its peers to the group timeout.
     """
     if optimize:
         from pipe_tpu_torch import optimize as _optimize

@@ -79,13 +79,14 @@ pushes alone, never by a clock or an event query, so the ranks agree.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from pipe_tpu_torch import mutable
+from pipe_tpu_torch import config, mutable
 from pipe_tpu_torch.errors import FlushError, StartError, ret_exec_errors
 from pipe_tpu_torch.graph import Route
 from pipe_tpu_torch.parallel.mesh import CH_AXIS, TIME_AXIS
@@ -148,7 +149,10 @@ def _carry_forward(old, new) -> None:
     leaf shape/dtype match (filter tails, IIR states — exact, no
     transient); params carry per key so live retunes survive the rebuild.
     A leaf whose shape changed with the width keeps its fresh allocation —
-    a one-block transient, documented in the surgery contract."""
+    a one-block transient, documented in the surgery contract. On a mesh the
+    shapes compared are this rank's local blocks: the rebuild runs on the
+    same mesh with the same dispatch grid, so a leaf's layout over the mesh
+    is unchanged and equal local shapes mean equal global ones."""
     if _trees_compatible(old.state, new.state):
         new.state = old.state
     if isinstance(old.params, dict) and isinstance(new.params, dict):
@@ -250,10 +254,14 @@ class LineExecutor:
         # mesh re-chunking: (C, n) pieces of feed data not yet a full block
         self._fed_residue: list = []
         self._host_bufs = _HostBuffers()
+        # the precision name this line's products use, bound at start_hook
+        # (None: the process-wide name, read at every call)
+        self.precision: Optional[str] = None
 
     # -- mesh ---------------------------------------------------------------
 
-    def _validate_mesh_route(self):
+    def _validate_mesh_route(self, route: Optional[Route] = None):
+        route = self.route if route is None else route
         t_shards = self.mesh.shape[TIME_AXIS]
         if self.block_size % t_shards:
             raise ValueError(
@@ -261,7 +269,7 @@ class LineExecutor:
                 f"time axis ({t_shards})"
             )
         if t_shards > 1:
-            for c in self.route.components():
+            for c in route.components():
                 if tree_flatten(c.state)[0] and not hasattr(c, "state_spec"):
                     raise ValueError(
                         f"stateful component {c!r} has no state_spec: on a "
@@ -350,7 +358,7 @@ class LineExecutor:
         None when the source reported EOF on the host (nothing ran).
         ``commit=False`` (:meth:`dispatch_noop_to`) runs the block with
         every collective of a regular one and keeps nothing of it."""
-        with mesh_scope(self.mesh):
+        with mesh_scope(self.mesh), config.precision_bound(self.precision):
             return self._sweep_scoped(fed, commit)
 
     def _sweep_scoped(self, fed, commit: bool):
@@ -641,6 +649,9 @@ class LineExecutor:
         self._held_feds = []
         self._fed_eof = False
         self._fed_residue = []
+        # the JAX package reads the precision when it traces the line's
+        # step; here the name is read once per run and bound to every sweep
+        self.precision = config.matmul_precision()
         if self.mesh is not None:
             self._validate_mesh_route()
         for comp in self.route.components():
@@ -678,7 +689,18 @@ class LineExecutor:
         ``rebuilt`` = ``(new_downstream_procs, new_sink)`` re-allocated for
         a new block width (a width-changing insert): the swap happens here,
         in the executor thread, carrying each old component's live
-        state/params onto its replacement where shapes match."""
+        state/params onto its replacement where shapes match. On a mesh
+        the spliced route is validated as at start (a stateful component on
+        a time-sharded mesh must declare its sharding); a route that fails
+        is restored and the ``ValueError`` raised."""
+        if self.mesh is not None:
+            trial = dataclasses.replace(
+                self.route,
+                processors=(self.route.processors[:pos] + [proc]
+                            + (rebuilt[0] if rebuilt is not None
+                               else self.route.processors[pos:])),
+                sink=rebuilt[1] if rebuilt is not None else self.route.sink)
+            self._validate_mesh_route(trial)
         if rebuilt is not None:
             new_after, new_sink = rebuilt
             for old, new in zip(self.route.processors[pos:], new_after):
@@ -716,11 +738,25 @@ class MultiLineExecutor:
         self.context = context
         self.dest = dest
         self.executors: List[LineExecutor] = executors or []
+        # every line of the group, the ended ones too, fixed at the first
+        # start (and grown by adopt_line): a restart runs all of them again
+        self._members: Optional[List[LineExecutor]] = None
+        # once every line ended: the lines of the last sweep, which keep the
+        # group's frontier and pad it (a peer that failed before the end
+        # pads those same lines)
+        self._tail: List[LineExecutor] = []
         self.name = "group"
 
     def start_hook(self):
         """Start every line; on failure flush everything already started and
-        raise (``run.go:78-99``)."""
+        raise (``run.go:78-99``). A restart is a new stream for every line
+        of the group, those that ended in the previous run included (lines
+        that reach EOF leave ``executors`` as they end)."""
+        if self._members is None:
+            self._members = list(self.executors)
+        else:
+            self.executors = list(self._members)
+        self._tail = []
         start_err = None
         for le in self.executors:
             try:
@@ -756,12 +792,15 @@ class MultiLineExecutor:
     def blocks_dispatched(self) -> int:
         """The group's dispatch frontier: lines in a sync group advance in
         lockstep, so the max over live lines is the sweep coordinate used by
-        block-indexed mutations (live-added lines start behind)."""
-        return max((le.blocks_dispatched for le in self.executors), default=0)
+        block-indexed mutations (a line added live starts its count at the
+        frontier it joined at)."""
+        return max((le.blocks_dispatched for le in self.executors or self._tail),
+                   default=0)
 
     def execute(self, stop_before=None):
         """One sweep over all live lines; EOF'd lines are flushed and spliced
         out; returns EOF once no lines remain (``run.go:113-132``)."""
+        live = list(self.executors)
         i = 0
         while i < len(self.executors):
             res = self.executors[i].execute(stop_before)  # raises on error
@@ -770,6 +809,7 @@ class MultiLineExecutor:
                 del self.executors[i]
                 if self.executors:
                     continue
+                self._tail = live
                 return EOF
             i += 1
         return None
@@ -779,16 +819,31 @@ class MultiLineExecutor:
             le.apply_mutations(ms)
 
     def dispatch_noop_to(self, target: int) -> None:
-        """Pad every line to the same frontier, in sweep order: the lines
-        interleave as in a regular round-robin pass, so the order of the
-        per-line collectives is the one the still-streaming peers make."""
-        while any(le.blocks_dispatched < target for le in self.executors):
-            for le in self.executors:
-                if le.blocks_dispatched < target:
+        """Pad the group to the sweep frontier ``target`` in the order of a
+        regular round-robin pass, so that the per-line collectives come in
+        the order that the still-streaming peers make them. After a failure
+        in the middle of a sweep the lines behind finish that sweep first;
+        then whole sweeps follow. Once every line ended, the lines of the
+        last sweep pad: a peer that failed before the end pads those lines
+        too. (A line that ends between a peer's failure and the end of the
+        stream cannot be matched: the failed peer pads it past its end, and
+        the ranks meet at the group timeout instead, as in the JAX
+        package.)"""
+        lines = self.executors or self._tail
+        while lines and min(le.blocks_dispatched for le in lines) < target:
+            lo = min(le.blocks_dispatched for le in lines)
+            for le in lines:
+                if le.blocks_dispatched == lo:
                     le.dispatch_noop_to(le.blocks_dispatched + 1)
 
     def adopt_line(self, le: LineExecutor) -> None:
         """Start and append a new line at a block boundary (the analog of
-        ``multiLineExecutor.addRoute``, ``run.go:134-144``)."""
+        ``multiLineExecutor.addRoute``, ``run.go:134-144``). On a mesh the
+        line's route is validated as at start. The line counts its sweeps
+        from the group's frontier, the coordinate of the group's targets,
+        rounds and padding."""
         le.start_hook()  # raises -> delivered as executor error
+        le.blocks_dispatched = self.blocks_dispatched
         self.executors.append(le)
+        if self._members is not None:
+            self._members.append(le)

@@ -30,22 +30,26 @@ the same stream and calls the same methods; ``block_size`` is the GLOBAL
 block, and each rank's sink receives the whole output. A block size that
 the mesh or a stage's shape rule does not fit is aggregated
 (``_agg`` user blocks per dispatch; ``at_block`` stays in user blocks and
-must lie on that grid). On a 1x1 mesh everything works as without one. On a
-larger mesh the ranks stay aligned only because they take the same
-decisions from the same stream, so:
+must lie on that grid). On a 1x1 mesh everything works as without one. A
+larger mesh is the JAX package's multi-process mode: the ranks stay aligned
+only because they take the same decisions from the same stream, and every
+``host_sync_every`` dispatches they meet in a health round
+(:mod:`pipe_tpu_torch.parallel.hostsync`), so:
 
 - all lines run in ONE executor (a shared mutable context);
-- a component push needs ``at_block``; a late or never-reached target
-  raises ``LateTargetError`` on the rank that saw it. An untargeted push
-  raises ``NotImplementedError``: landing it on the same block on every
-  rank takes the agreement round of ``hostsync``, which is not ported;
-- ``insert_processor`` and ``add_line`` raise ``NotImplementedError`` on
-  any pipe with a mesh (they need ``hostsync`` too); ``host_sync_every``
-  is stored and has no effect;
-- a rank that fails or is stopped alone leaves its peers waiting in their
-  next collective until the group timeout
-  (``pipe_tpu_torch.parallel.mesh.GROUP_TIMEOUT_S``, 60 s): they raise,
-  they do not hang. ``hostsync`` will turn that into an aligned abort.
+- a targeted push is strict: a late or never-reached target raises
+  ``LateTargetError`` on the rank that saw it. An untargeted component
+  push waits for a health round at which every rank holds it, and lands
+  at the round after that, on the same block everywhere;
+- ``insert_processor`` and ``add_line`` need ``at_block`` (the same on
+  every rank), and an added line must join the existing sync group;
+- a rank that fails, is stopped or pushes late pads its collectives with
+  no-op sweeps to the next round and flags it there: its peers raise
+  ``RunError`` from ``PeerAbortError`` at that round. At the end of the
+  stream every rank pads to the next round and joins it once more, so a
+  peer that failed inside the last window is still heard. A failure inside
+  a collective on the device cannot be padded; the peers then raise at the
+  group timeout (``pipe_tpu_torch.parallel.mesh.GROUP_TIMEOUT_S``, 60 s).
 """
 
 from __future__ import annotations
@@ -58,7 +62,12 @@ from typing import Dict, List, Optional
 import torch
 
 from pipe_tpu_torch import mutable
-from pipe_tpu_torch.errors import FlushError, RunError, StartError
+from pipe_tpu_torch.errors import (
+    FlushError,
+    RunError,
+    ShapeConstraintError,
+    StartError,
+)
 from pipe_tpu_torch.graph import (
     Line,
     Route,
@@ -152,9 +161,9 @@ class Pipe:
     ``lookahead`` and ``batch_blocks`` are the executor's dispatch knobs
     (:class:`~pipe_tpu_torch.runtime.executor.LineExecutor`); ``stats`` an
     optional :class:`~pipe_tpu_torch.profiling.StatsRecorder`.
-    ``mesh`` shards the lines over a mesh of ranks (module docstring).
-    ``host_sync_every`` is the JAX package's period, in dispatches, of a
-    mesh pipe's cross-host health round: it is stored and has no effect."""
+    ``mesh`` shards the lines over a mesh of ranks (module docstring);
+    ``host_sync_every`` is the period, in dispatches, of the health rounds
+    of a mesh larger than 1x1 (the same on every rank)."""
 
     def __init__(self, block_size: int, *lines: Line, stats=None,
                  lookahead: int = 1, batch_blocks: int = 1, mesh=None,
@@ -206,6 +215,10 @@ class Pipe:
                 "(pipe.go:89-103)"
             )
         self._merger: Optional[_Merger] = None
+        # untargeted pushes on a mesh larger than 1x1 awaiting agreement
+        self._untargeted_q: list = []
+        self._untargeted_lock = threading.Lock()
+        self._untargeted_stale = 0
         self._cancel = threading.Event()
         self._mutations_q: "queue.Queue" = queue.Queue()
         self._control: Optional[threading.Thread] = None
@@ -236,12 +249,12 @@ class Pipe:
             )
         return at_block // self._agg
 
-    def _refuse_mesh_surgery(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a pipe with a mesh needs "
-                "pipe_tpu_torch.parallel.hostsync (every rank must adopt at "
-                "the same block), which is not ported yet")
+    def _require_at_block(self, at_block: Optional[int]) -> None:
+        if self._multi and at_block is None:
+            raise ValueError(
+                "surgery on a mesh larger than 1x1 needs at_block= (the same "
+                "on every rank) so every rank adopts at the same block "
+                "(collective alignment)")
 
     # -- registry (reference pipe.go:128-194) ------------------------------
 
@@ -323,6 +336,9 @@ class Pipe:
         # start_hook): targets the previous stream never reached must not
         # fire into this one
         self.pusher.clear_targeted()
+        with self._untargeted_lock:
+            self._untargeted_q.clear()
+        self._untargeted_stale = 0
         if initializers:
             self.pusher.put(*initializers)
         self.pusher.push()
@@ -340,14 +356,52 @@ class Pipe:
         self._merger.add(lambda: self._run_executor(executor),
                          name=f"pipe-exec-{executor.name}")
 
+    #: rounds an untargeted push may wait for its peers before the run
+    #: fails loudly: a batch that some rank never matches means the ranks
+    #: are not pushing the same batch sequence
+    UNTARGETED_STALE_ROUNDS = 64
+
+    def _health_round(self, sync) -> None:
+        """One aligned round: health flags and the untargeted-push
+        agreement. The mesh's minimum of pending batches is targeted at the
+        round after this one, the same block on every rank."""
+        with self._untargeted_lock:
+            pending = len(self._untargeted_q)
+        target = sync.next_round + sync.every  # read before check advances it
+        k = sync.check(flag=0, pending=pending)  # raises PeerAbortError
+        if k > 0:
+            with self._untargeted_lock:
+                batches, self._untargeted_q = (
+                    self._untargeted_q[:k], self._untargeted_q[k:])
+                pending = len(self._untargeted_q)
+            for batch in batches:
+                for m in batch:
+                    self.pusher.put(m, at_block=target)
+            self.pusher.push()
+            self._untargeted_stale = 0
+        if pending > 0:
+            self._untargeted_stale += 1
+            if self._untargeted_stale >= self.UNTARGETED_STALE_ROUNDS:
+                raise RuntimeError(
+                    f"{pending} untargeted push batch(es) waited "
+                    f"{self._untargeted_stale} health rounds without a "
+                    "matching push on every peer rank: the ranks are not "
+                    "pushing the same batch sequence")
+        else:
+            self._untargeted_stale = 0
+
     def _run_executor(self, executor) -> None:
         """Per-executor thread body (``run.go:171-196``): start (no flush on
         start failure for async executors — the reference defers flush only
         after a successful start), execute until EOF/cancel/error, always
         flush, report the first error. On a mesh larger than 1x1 delivery
-        is strict (a late target raises) and the end of the stream audits
-        the targets it never reached."""
-        strict = self._multi
+        is strict (a late target raises), the end of the stream audits the
+        pushes it never delivered, and the loop runs the aligned health
+        rounds (first-error-wins across the mesh,
+        :mod:`pipe_tpu_torch.parallel.hostsync`)."""
+        from pipe_tpu_torch.parallel.hostsync import HostSync, PeerAbortError
+
+        sync = HostSync(self.mesh, self.host_sync_every) if self._multi else None
         lines = getattr(executor, "executors", [executor])
         for le in lines:
             le.cancel = self._cancel
@@ -356,6 +410,23 @@ class Pipe:
             # the current card is a property of the thread: pinned buffers
             # and events made here belong to the lines' card
             torch.cuda.set_device(lines[0].device)
+
+        def flag_peers():
+            # Tell the peers to abort: pad this rank's collectives with
+            # no-op sweeps up to the next round (a peer's block in flight
+            # needs this rank's share of its collectives), then join that
+            # round with flag=1. The target comes from blocks_dispatched,
+            # the sweeps actually made. Best-effort: a lost peer must not
+            # mask the original error.
+            if sync is None:
+                return
+            try:
+                executor.dispatch_noop_to(
+                    sync.pad_target(executor.blocks_dispatched))
+                sync.check(flag=1)
+            except Exception:  # noqa: BLE001
+                pass
+
         try:
             executor.start_hook()
         except Exception as e:  # noqa: BLE001
@@ -365,8 +436,11 @@ class Pipe:
                 err = StartError(f"error starting: {e}")
                 err.__cause__ = e
                 self._merger.report(err)
+            flag_peers()
             return
 
+        err_exec: Optional[BaseException] = None
+        eof_exit = False
         try:
             while not self._cancel.is_set():
                 dest = executor.dest
@@ -375,30 +449,54 @@ class Pipe:
                     frontier = executor.blocks_dispatched
                     # strict on a mesh of several ranks: a late target is
                     # an error, not a rank-local late landing
-                    ms = dest.take_due(frontier, strict=strict)
+                    ms = dest.take_due(frontier, strict=sync is not None)
                     if ms:
                         executor.apply_mutations(ms)
                     # cap the next dispatch at the nearest block-indexed
                     # mutation so it lands exactly there
                     stop_before = dest.next_target(frontier)
+                if sync is not None:
+                    # and at the next round, so that every rank's frontier
+                    # lands exactly on the round coordinate
+                    nr = sync.next_round
+                    stop_before = nr if stop_before is None else min(stop_before, nr)
                 if executor.execute(stop_before) is EOF:
-                    if strict and dest is not None:
-                        # end-of-stream audit: a targeted mutation that the
-                        # stream never reached would otherwise vanish, on
-                        # one rank only if its delivery raced the EOF
-                        leftover = dest.pending_targets()
-                        if leftover:
-                            raise mutable.LateTargetError(
-                                f"targeted mutation(s) at block(s) "
-                                f"{sorted(leftover)} undelivered at end of "
-                                f"stream (frontier "
-                                f"{executor.blocks_dispatched})"
-                            )
+                    eof_exit = True
+                    if sync is not None and dest is not None:
+                        self._audit_end_of_stream(executor, dest)
                     break
+                if sync is not None and sync.due(executor.blocks_dispatched):
+                    self._health_round(sync)  # raises PeerAbortError
+        except PeerAbortError as e:
+            # a clean stop() racing a peer's stop is not an error
+            if not self._cancel.is_set():
+                err_exec = RunError(f"error running: {e}")
+                err_exec.__cause__ = e
+            sync = None  # the flagger made its last round: no re-sync
         except Exception as e:  # noqa: BLE001
-            err = RunError(f"error running: {e}")
-            err.__cause__ = e
-            self._merger.report(err)
+            err_exec = RunError(f"error running: {e}")
+            err_exec.__cause__ = e
+
+        if err_exec is not None:
+            self._merger.report(err_exec)
+            flag_peers()
+        elif eof_exit:
+            # one last aligned round, so that a peer that failed inside the
+            # last window (after this stream ended) still has its padded
+            # collectives completed and its flag heard
+            if sync is not None:
+                try:
+                    executor.dispatch_noop_to(
+                        sync.pad_target(executor.blocks_dispatched))
+                    sync.check(flag=0)
+                except PeerAbortError as e:
+                    err = RunError(f"error running: {e}")
+                    err.__cause__ = e
+                    self._merger.report(err)
+                except Exception:  # noqa: BLE001
+                    pass
+        else:
+            flag_peers()  # cancelled (stop()): release the peers
         try:
             executor.flush_hook()
         except Exception as e:  # noqa: BLE001
@@ -408,6 +506,26 @@ class Pipe:
                 err = FlushError(f"error flushing: {e}")
                 err.__cause__ = e
                 self._merger.report(err)
+
+    def _audit_end_of_stream(self, executor, dest) -> None:
+        """At the end of a stream on a mesh larger than 1x1, a push the
+        stream never delivered would vanish, on one rank only if its
+        delivery raced the end: deterministic or fail, so it raises."""
+        leftover = dest.pending_targets()
+        if leftover:
+            raise mutable.LateTargetError(
+                f"targeted mutation(s) at block(s) {sorted(leftover)} "
+                f"undelivered at end of stream (frontier "
+                f"{executor.blocks_dispatched})")
+        with self._untargeted_lock:
+            pending = len(self._untargeted_q)
+        if pending:
+            raise RuntimeError(
+                f"{pending} untargeted push batch(es) pending at end of "
+                "stream: the batch may not have reached an agreement "
+                "round (a health round at which every rank held it; one "
+                "comes every host_sync_every dispatches) before the stream "
+                "ended; push it earlier, or target it with at_block=")
 
     def _control_loop(self) -> None:
         """Apply pipe-context mutations, forward the rest
@@ -465,19 +583,35 @@ class Pipe:
         A mesh larger than 1x1 is strict (deterministic or fail): every
         rank pushes the same targets; a target that arrives after its block
         was dispatched, or that the stream never reaches, raises
-        ``mutable.LateTargetError`` and aborts the run. Push with headroom:
-        target comfortably past ``block_index()`` plus ``lookahead *
-        batch_blocks``. An untargeted component push there raises
-        ``NotImplementedError`` (module docstring)."""
+        ``mutable.LateTargetError`` and aborts the run on every rank. Push
+        with headroom: target comfortably past ``block_index()`` plus
+        ``lookahead * batch_blocks``. An untargeted component push there
+        queues on the rank; at each health round the ranks exchange how
+        many batches they hold, and the mesh's minimum is targeted at the
+        round after, the same block on every rank (every rank must push the
+        same batch sequence: a batch that some rank does not match within
+        ``UNTARGETED_STALE_ROUNDS`` rounds, or that is still waiting when
+        the stream ends, fails the run). A batch may not mix a pipe
+        structure mutation with untargeted component mutations there."""
         if not self._running:
             raise RuntimeError("pipe isn't running")
         if (self._multi and at_block is None
                 and any(m.context != self.mctx for m in mutations)):
-            raise NotImplementedError(
-                "an untargeted push on a mesh larger than 1x1 would land on "
-                "different blocks on different ranks; the agreement round "
-                "that aligns it is pipe_tpu_torch.parallel.hostsync, which "
-                "is not ported yet: pass at_block= (the same on every rank)")
+            # structure mutations run in the control thread and carry
+            # their own at_block rule (surgery); untargeted component
+            # batches wait for the agreement of a health round
+            if any(m.context == self.mctx for m in mutations):
+                raise ValueError(
+                    "a push on a mesh larger than 1x1 mixes a pipe structure "
+                    "mutation with untargeted component mutations in one "
+                    "batch: the structure mutation runs in the control "
+                    "thread while the component batch waits for the ranks' "
+                    "agreement, so their order would be undefined; push "
+                    "them separately (or target the components with "
+                    "at_block=)")
+            with self._untargeted_lock:
+                self._untargeted_q.append(list(mutations))
+            return
         at_block = self._to_internal_block(at_block, "push")
         self._mutations_q.put((list(mutations), at_block))
 
@@ -557,20 +691,33 @@ class Pipe:
         """Grow the graph while running (``pipe.go:259-295``). Returns a
         handle completed once the line is live. ``at_block`` pins the
         adoption to an exact block index of the owning sync group (only
-        meaningful for a line joining a running group)."""
+        meaningful for a line joining a running group). On a mesh larger
+        than 1x1 it is required, and the line must join the existing sync
+        group (share its mutable context): every rank adds the same line at
+        the same target, so its collectives start at the same block
+        everywhere."""
         if not self._running:
             raise RuntimeError("pipe isn't running")
-        self._refuse_mesh_surgery("add_line")
+        self._require_at_block(at_block)
         handle = _Handle()
+        at_block = self._to_internal_block(at_block, "add_line")
+        join_rule = ValueError(
+            "an add_line on a mesh larger than 1x1 must join the existing "
+            "sync group (share its mutable context): a second executor "
+            "would interleave the ranks' collectives nondeterministically")
 
         def mutation():
             try:
-                route = make_route(line, self.block_size, self.device)
+                with mesh_scope(self.mesh):
+                    route = make_route(line, self._block_internal, self.device)
             except Exception as e:  # noqa: BLE001
                 handle._fail(e)
                 return
 
             if not route.context.is_mutable():
+                if self._multi:
+                    handle._fail(join_rule)
+                    return
                 le = self._register_route(route)
                 self._launch(le)
                 handle._set()
@@ -597,6 +744,9 @@ class Pipe:
                 self.pusher.put(route.context.mutate(adopt), at_block=at_block)
                 return
 
+            if self._multi:
+                handle._fail(join_rule)
+                return
             self._register_route(route)
             self._launch(self._groups[route.context])
             handle._set()
@@ -612,6 +762,8 @@ class Pipe:
         is lost or duplicated. ``at_block`` pins the adoption to an exact
         stream block index: the new processor's first processed sample is
         exactly ``at_block * block_size`` under any lookahead/batch_blocks.
+        It is required on a mesh larger than 1x1, where every rank must
+        splice at the same block.
 
         Width-changing processors (any ``out_capacity`` different from the
         slot's input width) are accepted, as in the reference
@@ -619,21 +771,26 @@ class Pipe:
         new width at adoption, carrying each component's live state and
         params forward where shapes match (filter tails and IIR states
         continue exactly; a leaf whose shape depends on the block width
-        re-initializes — a one-block transient)."""
+        re-initializes — a one-block transient). On a mesh the rebuild keeps
+        the dispatch grid: a new width that breaks a downstream stage's
+        shape rule refuses through the handle (``ValueError``), and the
+        stream runs on unchanged."""
         if not self._running:
             raise RuntimeError("pipe isn't running")
-        self._refuse_mesh_surgery("insert_processor")
+        self._require_at_block(at_block)
         handle = _Handle()
+        at_block = self._to_internal_block(at_block, "insert_processor")
 
         def mutation():
             route = self.routes[line]
             le = self._exec_of_route[line]
             try:
                 prev_props = route.prev_props(pos)
-                width = route.prev_capacity(pos, self.block_size)
+                width = route.prev_capacity(pos, self._block_internal)
                 ctx = component_context(route.context)
-                proc = allocate_processor(proc_alloc, ctx, width, prev_props,
-                                          route.device)
+                with mesh_scope(self.mesh):
+                    proc = allocate_processor(proc_alloc, ctx, width,
+                                              prev_props, route.device)
             except Exception as e:  # noqa: BLE001
                 handle._fail(e)
                 return
@@ -642,19 +799,31 @@ class Pipe:
                 """Downstream rebuild for a width-changing insert, run at
                 the adoption boundary (executor thread) against the live
                 route: a second surgery queued behind an un-adopted first
-                one would otherwise rebuild from a stale processor list."""
+                one would otherwise rebuild from a stale processor list. On
+                a mesh it keeps the dispatch grid: re-aggregating under the
+                stream would move the at_block grid."""
                 w, pr = proc.out_capacity, proc.output
-                new_after = []
-                for i in range(pos, len(route.processors)):
-                    old = route.processors[i]
-                    rp = allocate_processor(route.proc_allocs[i], old.context,
-                                            w, pr, route.device)
-                    pr = rp.output
-                    if rp.out_capacity is not None:
-                        w = rp.out_capacity
-                    new_after.append(rp)
-                new_sink = allocate_sink(route.sink_alloc, route.sink.context,
-                                         w, pr, route.device)
+                try:
+                    with mesh_scope(self.mesh):
+                        new_after = []
+                        for i in range(pos, len(route.processors)):
+                            old = route.processors[i]
+                            rp = allocate_processor(route.proc_allocs[i],
+                                                    old.context, w, pr,
+                                                    route.device)
+                            pr = rp.output
+                            if rp.out_capacity is not None:
+                                w = rp.out_capacity
+                            new_after.append(rp)
+                        new_sink = allocate_sink(route.sink_alloc,
+                                                 route.sink.context, w, pr,
+                                                 route.device)
+                except ShapeConstraintError as e:
+                    raise ValueError(
+                        "cannot live-insert this width-changing processor: "
+                        f"the new {proc.out_capacity}-frame block width "
+                        "violates a downstream stage's shape rule on this "
+                        f"mesh ({e}); build a new pipe") from e
                 return new_after, new_sink
 
             def adopt():
@@ -662,7 +831,7 @@ class Pipe:
                 # properties at push time (pipe.go:314-333); if an earlier
                 # surgery changed the slot since, splicing the stale
                 # component would corrupt the stream — refuse cleanly
-                if (route.prev_capacity(pos, self.block_size) != width
+                if (route.prev_capacity(pos, self._block_internal) != width
                         or route.prev_props(pos) != prev_props):
                     handle._fail(ValueError(
                         "insert_processor raced an earlier surgery that "
@@ -685,7 +854,13 @@ class Pipe:
                 except Exception as e:  # noqa: BLE001
                     handle._fail(e)
                     raise
-                le.insert_processor(pos, proc, proc_alloc, rebuilt)
+                try:
+                    le.insert_processor(pos, proc, proc_alloc, rebuilt)
+                except ValueError as e:
+                    # the mesh route check refused the splice: the route is
+                    # as it was and the stream runs on
+                    handle._fail(e)
+                    return
                 handle._set()
 
             if route.context.is_mutable():

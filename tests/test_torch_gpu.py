@@ -635,6 +635,71 @@ def test_high_precision_clears_100_db_on_the_slice(cuda):
 
 
 @pytest.mark.gpu
+def test_a_highest_line_never_drops_to_single_tf32_products(cuda):
+    """Another thread's ``'high'`` sets torch's process-wide flags to TF32.
+    A product bound to ``'highest'`` then takes the three products of
+    ``'high'`` (equal to them bit for bit), not one TF32 product; and a
+    pipe started under ``'highest'`` stays above 100 dB against float64
+    when the main thread sets ``'high'`` after block 3."""
+    import scipy.signal
+
+    rng = np.random.default_rng(7)
+    a = torch.tensor(rng.standard_normal((256, 256)), dtype=torch.float32,
+                     device=cuda)
+    ref = (a.double() @ a.double()).cpu().numpy()
+    config.set_matmul_precision("high")
+    try:
+        assert not config.fp32_pinned()
+        with config.precision_bound("highest"):
+            kept = config.matmul(a, a)
+        with config.precision_bound("high"):
+            high = config.matmul(a, a)
+        single = a @ a
+    finally:
+        config.set_matmul_precision("highest")
+    assert torch.equal(kept, high)
+    db_kept, db_single = (snr_db(ref, t.cpu().numpy()) for t in (kept, single))
+    assert db_kept > db_single + 20, (db_kept, db_single)
+
+    C, block, n_blocks = 16, 4096, 8
+    x = rng.standard_normal((C, block * n_blocks)).astype(np.float32)
+    h = ops.design_lowpass(255, 4000, 44100)
+    m = rng.standard_normal((2, C)).astype(np.float32)
+    hold, reached = threading.Event(), threading.Event()
+    pos, out = [0], []
+
+    def feed(n):
+        if pos[0] == 3 * block:
+            reached.set()
+            hold.wait(30)
+        if pos[0] >= x.shape[1]:
+            return None
+        pos[0] += n
+        return x[:, pos[0] - n:pos[0]]
+
+    p = pipe_tpu_torch.Pipe(block, pipe_tpu_torch.Line(
+        source=lambda c, b: pipe_tpu_torch.Source(
+            output=SignalProperties(44100.0, C), feed=feed),
+        processors=[ops.FIR(h).processor(), ops.ChannelMix(m).processor()],
+        sink=lambda c, b, pr: pipe_tpu_torch.Sink(receive=out.append)),
+        device=cuda)
+    p.start()
+    try:
+        assert reached.wait(30)
+        config.set_matmul_precision("high")
+        hold.set()
+        p.wait(60)
+    finally:
+        hold.set()
+        config.set_matmul_precision("highest")
+    y = np.concatenate(out, axis=1)
+    f64 = np.asarray(h, np.float32).astype(np.float64)
+    oracle = m.astype(np.float64) @ scipy.signal.lfilter(
+        f64, [1.0], x.astype(np.float64), axis=1)
+    assert snr_db(oracle, y) > 100
+
+
+@pytest.mark.gpu
 def test_sharded_biquad_stage_launches_the_tile_kernel(cuda):
     """A 1x1 ShardedChain with a BiquadStage on the card launches
     ``iir_tiles`` twice a chunk (the zero-state pass and the defect pass)

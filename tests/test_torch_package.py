@@ -82,6 +82,25 @@ def test_sharded_kit_exports_every_jax_name():
     assert "sharded" in parallel.__all__
 
 
+def test_hostsync_is_a_submodule_with_the_jax_names():
+    """``pipe_tpu_torch.parallel.hostsync`` is importable as
+    ``pipe_tpu.parallel.hostsync`` is, with its public names
+    (``HostSync``, ``PeerAbortError``), and the import check above covers
+    its file."""
+    import importlib
+
+    import pipe_tpu.parallel.hostsync as jmod
+
+    tmod = importlib.import_module("pipe_tpu_torch.parallel.hostsync")
+    names = [n for n, v in vars(jmod).items() if not n.startswith("_")
+             and getattr(v, "__module__", None) == jmod.__name__]
+    assert sorted(names) == ["HostSync", "PeerAbortError"]
+    for n in names:
+        assert getattr(tmod, n).__module__ == tmod.__name__, n
+    assert issubclass(tmod.PeerAbortError, RuntimeError)
+    assert PKG / "parallel" / "hostsync.py" in set(PKG.rglob("*.py"))
+
+
 def test_fp32_pinned_for_cublas_and_cudnn():
     assert config.matmul_precision() == "highest"
     assert config.fp32_pinned()

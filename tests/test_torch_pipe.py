@@ -72,11 +72,11 @@ def test_no_lines_raises():
 def test_unported_knobs_raise(knob):
     """No knob of the JAX ``Pipe`` is left unported. ``mesh`` takes a
     :func:`pipe_tpu_torch.parallel.make_mesh` mesh (anything else fails at
-    build, before a thread starts) and what still needs ``hostsync`` raises
-    ``NotImplementedError``: live surgery on a pipe with a mesh.
-    ``optimize=True``: the Pipe fuses its line at build (two biquads into
-    one cascade, a gain into the mix) and streams what the unfused line
-    streams."""
+    build, before a thread starts), and live surgery works on a 1x1 mesh in
+    the form without ``at_block``: an inserted gain and an added line
+    stream. ``optimize=True``: the Pipe fuses its line at build (two
+    biquads into one cascade, a gain into the mix) and streams what the
+    unfused line streams."""
     from pipe_tpu_torch import ops, parallel
     from pipe_tpu_torch.ops.fused import BiquadCascade, MixWithGain
 
@@ -89,16 +89,24 @@ def test_unported_knobs_raise(knob):
 
         with pytest.raises(AttributeError):
             pipe_tpu_torch.Pipe(BLOCK, line(mock.Sink()), **knob)
-        sink = mock.Sink()
-        p = pipe_tpu_torch.Pipe(BLOCK, line(sink), mesh=parallel.make_mesh(1, 1))
+        sink, sink2 = mock.Sink(), mock.Sink()
+        p = pipe_tpu_torch.Pipe(BLOCK, pipe_tpu_torch.Line(
+            source=mock.Source(limit=64 * BLOCK, value=1.0,
+                               interval=0.002).source(),
+            processors=[parallel.sharded.Gain(3.0).processor()],
+            sink=sink.sink()), mesh=parallel.make_mesh(1, 1))
         p.start()
-        for call in (lambda: p.insert_processor(
-                         0, 0, parallel.sharded.Gain(2.0).processor()),
-                     lambda: p.add_line(line(mock.Sink()))):
-            with pytest.raises(NotImplementedError, match="hostsync"):
-                call()
+        h1 = p.insert_processor(0, 0, parallel.sharded.Gain(2.0).processor())
+        h2 = p.add_line(line(sink2))
+        for h in (h1, h2):
+            assert h.wait(60) and h.error is None, h.error
         p.wait(60)
-        assert sink.values.shape == (1, 4 * BLOCK) and np.all(sink.values == 3.0)
+        v = sink.values[0]
+        assert v.shape == (64 * BLOCK,) and v[-1] == 6.0
+        switch = np.flatnonzero(np.diff(v))
+        assert set(np.unique(v)) <= {3.0, 6.0} and len(switch) <= 1
+        assert all((i + 1) % BLOCK == 0 for i in switch)  # a block boundary
+        assert sink2.values.shape == (1, 4 * BLOCK) and np.all(sink2.values == 3.0)
         return
     rows = [ops.design_peaking_eq(44100, 1000, 1.0, 3.0),
             ops.design_highshelf(44100, 8000, -2.0)]
@@ -127,8 +135,10 @@ def test_unported_knobs_raise(knob):
 
 def test_host_sync_every_is_accepted_and_stored(pipe_timeout):
     """The JAX package's ``host_sync_every`` (default 16) is a knob of the
-    port's ``Pipe`` too: stored and without effect, with a mesh too (the
-    health rounds it would pace belong to ``hostsync``)."""
+    port's ``Pipe`` too, stored as given. It paces the health rounds of a
+    mesh larger than 1x1 (``tests/test_torch_hostsync.py`` counts them
+    against the period on four ranks); without a mesh and on a 1x1 mesh
+    there are no rounds, and the stream is the same whatever the period."""
     def line(sink):
         return pipe_tpu_torch.Line(
             source=mock.Source(limit=8 * BLOCK, channels=2).source(),
@@ -144,12 +154,14 @@ def test_host_sync_every_is_accepted_and_stored(pipe_timeout):
     assert sink.messages == 8 and sink.samples == 8 * BLOCK
     from pipe_tpu_torch import parallel
 
+    mesh = parallel.make_mesh(1, 1)
+    mesh.reset_stats()
     sink = mock.Sink(discard=True)
-    p = pipe_tpu_torch.Pipe(BLOCK, line(sink), mesh=parallel.make_mesh(1, 1),
-                            host_sync_every=3)
+    p = pipe_tpu_torch.Pipe(BLOCK, line(sink), mesh=mesh, host_sync_every=3)
     assert p.host_sync_every == 3
     wait_pipe(p, pipe_timeout)
     assert sink.messages == 8 and sink.samples == 8 * BLOCK
+    assert "health" not in mesh.stats and p.block_index() == 8
 
 
 def test_reset_restart(pipe_timeout):
@@ -178,6 +190,26 @@ def test_sync_line(pipe_timeout):
     wait_pipe(p, pipe_timeout)
     assert source.messages == 100
     assert source.samples == 100 * BLOCK
+
+
+def test_a_sync_group_restarts_every_line(pipe_timeout):
+    """A restart is a new stream for every line of a sync group, those that
+    ended in the previous run included: the two lines stream again from
+    their reset sources. (``pipe_tpu``'s group drops its lines as they end,
+    so its restart runs no line and ``wait`` times out; the mesh soak's
+    restart needs the port's behaviour.)"""
+    ctx = mutable.mutable()
+    src_a = mock.Source(limit=10 * BLOCK, channels=2)
+    src_b = mock.Source(limit=4 * BLOCK, channels=2)
+    sink_a, sink_b = mock.Sink(discard=True), mock.Sink(discard=True)
+    p = pipe_tpu_torch.Pipe(
+        BLOCK,
+        pipe_tpu_torch.Line(source=src_a.source(), sink=sink_a.sink(), context=ctx),
+        pipe_tpu_torch.Line(source=src_b.source(), sink=sink_b.sink(), context=ctx))
+    wait_pipe(p, pipe_timeout)
+    assert (sink_a.samples, sink_b.samples) == (10 * BLOCK, 4 * BLOCK)
+    wait_pipe(p, pipe_timeout, src_a.reset(), src_b.reset())
+    assert (sink_a.samples, sink_b.samples) == (20 * BLOCK, 8 * BLOCK)
 
 
 def test_multiple_lines_shared_context(pipe_timeout):

@@ -235,9 +235,11 @@ def test_precision_names_and_scope():
 
 
 def test_the_path_is_chosen_once_per_call(monkeypatch):
-    """The knob is process-wide: a scope entered in one thread changes what
-    other threads' later calls do. Within one call the helper reads the name
-    once, so a flip in mid-call cannot mix one product with three."""
+    """The knob is process-wide for a thread that bound no name (an
+    executor binds its run's name, ``test_a_running_pipe_keeps_its_
+    precision``): a scope entered in one thread changes what other threads'
+    later calls do. Within one call the helper reads the name once, so a
+    flip in mid-call cannot mix one product with three."""
     calls = []
     a = torch.randn(8, 8)
 
@@ -294,3 +296,63 @@ def test_recursive_paths_do_not_consult_the_knob(rng, path):
     outs = [_under(name, run) for name in ("highest", "high", "default")]
     np.testing.assert_array_equal(outs[1], outs[0])
     np.testing.assert_array_equal(outs[2], outs[0])
+
+
+def _pipe_under_flip(pkg, x, flip_to=None, start_as="highest"):
+    """``x`` through ``Pipe(FIR -> 4->2 mix)`` of ``pkg`` started under
+    ``start_as``; with ``flip_to`` the main thread sets that precision once
+    the feed reached block 3 (the feed waits for it), and the name is
+    restored after the run."""
+    cfg = pkg.config
+    block, hold, reached = 256, threading.Event(), threading.Event()
+    pos, out = [0], []
+    h = np.asarray(fir.design_lowpass(63, 4000.0, 44100.0))
+    m = np.random.default_rng(1).standard_normal((2, x.shape[0])).astype(np.float32)
+
+    def feed(n):
+        if pos[0] == 3 * block and flip_to is not None:
+            reached.set()
+            hold.wait(30)
+        if pos[0] >= x.shape[1]:
+            return None
+        pos[0] += n
+        return x[:, pos[0] - n:pos[0]]
+
+    cfg.set_matmul_precision(start_as)
+    try:
+        p = pkg.Pipe(block, pkg.Line(
+            source=lambda c, b: pkg.Source(
+                output=pkg.SignalProperties(44100.0, x.shape[0]), feed=feed),
+            processors=[pkg.ops.FIR(h).processor(),
+                        pkg.ops.ChannelMix(m).processor()],
+            sink=lambda c, b, pr: pkg.Sink(receive=lambda a: out.append(np.array(a)))))
+        p.start()
+        if flip_to is not None:
+            assert reached.wait(30)
+            cfg.set_matmul_precision(flip_to)
+            hold.set()
+        p.wait(60)
+    finally:
+        cfg.set_matmul_precision("highest")
+    return np.concatenate(out, axis=1)
+
+
+def test_a_running_pipe_keeps_its_precision(rng):
+    """A pipe started under ``'highest'`` keeps it when the main thread sets
+    ``'high'`` after block 3, as a JAX pipe keeps the precision its step
+    was traced with: the output equals the untouched run bit for bit, in
+    both packages. The port's 3-pass path makes the difference observable
+    on the CPU (a run started under ``'high'`` differs), which the JAX
+    package's CPU backend does not."""
+    import pipe_tpu
+
+    x = rng.standard_normal((4, 256 * 8)).astype(np.float32)
+    jax_plain = _pipe_under_flip(pipe_tpu, x)
+    np.testing.assert_array_equal(_pipe_under_flip(pipe_tpu, x, "high"), jax_plain)
+    plain = _pipe_under_flip(pipe_tpu_torch, x)
+    np.testing.assert_array_equal(_pipe_under_flip(pipe_tpu_torch, x, "high"), plain)
+    high = _pipe_under_flip(pipe_tpu_torch, x, start_as="high")
+    assert not np.array_equal(high, plain)
+    assert snr_db(plain, high) > HIGH_VS_HIGHEST_DB
+    # the packages agree on the stream the pipe kept
+    assert snr_db(jax_plain.astype(np.float64), plain) > 100

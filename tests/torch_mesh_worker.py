@@ -414,22 +414,17 @@ def drive_pipe(pkg, make_mesh, mesh, block, lines, pushes=(), knobs=None,
     return res
 
 
-def pipe_job(rank, group_timeout=None, **kwargs):
-    """:func:`drive_pipe` with the port on this rank. ``group_timeout``
-    lowers the mesh's group timeout for meshes made from now on (a job
-    whose peers must give up quickly)."""
+def pipe_job(rank, **kwargs):
+    """:func:`drive_pipe` with the port on this rank."""
     import pipe_tpu_torch
     from pipe_tpu_torch import parallel
-    from pipe_tpu_torch.parallel import mesh as mesh_mod
 
-    if group_timeout is not None:
-        mesh_mod.GROUP_TIMEOUT_S = group_timeout
-        mesh_mod._meshes.clear()
     return drive_pipe(pipe_tpu_torch, parallel.make_mesh, rank=rank, **kwargs)
 
 
 def pipe_refusals_job(rank, mesh):
-    """What a mesh Pipe refuses on purpose: ``{what: (type, message)}``."""
+    """What a mesh Pipe refuses on purpose: ``{what: (type, message)}``;
+    every surgery and push here is made on every rank alike."""
     import numpy as np
 
     import pipe_tpu_torch as pt
@@ -458,15 +453,26 @@ def pipe_refusals_job(rank, mesh):
     ctx = pt.mutable.mutable()
     attempt("one group", lambda: pt.Pipe(
         1024, line(context=ctx), line(context=ctx), mesh=m))
-    gate_src = mock.Source(channels=2, value=1.0, limit=4 * 1024)
-    p = pt.Pipe(1024, pt.Line(source=gate_src.source(),
-                              processors=[g.processor()],
+    gate = __import__("threading").Event()
+    inner = mock.Source(channels=2, value=1.0, limit=4 * 1024).source()
+
+    def gated(ctx, b):
+        comp = inner(ctx, b)
+        comp.host_pre = lambda: gate.wait(60)
+        return comp
+
+    p = pt.Pipe(1024, pt.Line(source=gated, processors=[g.processor()],
                               sink=mock.Sink().sink()), mesh=m)
     p.start()
-    attempt("untargeted push", lambda: p.push(g.set_gain(3.0)))
     attempt("insert_processor", lambda: p.insert_processor(
-        0, 0, sh.Gain(1.0).processor(), at_block=2))
-    attempt("add_line", lambda: p.add_line(line(), at_block=2))
+        0, 0, sh.Gain(1.0).processor()))
+    attempt("add_line", lambda: p.add_line(line()))
+    attempt("mixed batch", lambda: p.push(g.set_gain(3.0),
+                                          p.mctx.mutate(lambda: None)))
+    h = p.add_line(line(), at_block=2)  # a line of its own: no group to join
+    h.wait(30)
+    out["add_line outside the group"] = (type(h.error).__name__, str(h.error))
+    gate.set()
     p.wait(60)
     return out
 
@@ -495,6 +501,17 @@ def die_job(rank):
 JOBS = {f.__name__: f for f in (
     chain_job, build_error_job, mesh_error_job, prefix_job, halo_job,
     pipe_job, pipe_refusals_job, hang_job, die_job)}
+
+
+def _job(name):
+    """A job of this file by name, or of another module of the repo as
+    ``"package.module:function"``."""
+    if ":" not in name:
+        return JOBS[name]
+    import importlib
+
+    module, func = name.split(":")
+    return getattr(importlib.import_module(module), func)
 
 
 # ---------------------------------------------------------------------------
@@ -527,7 +544,7 @@ def main(argv):
             break
         name, kwargs = msg
         try:
-            result = ("ok", JOBS[name](rank, **kwargs))
+            result = ("ok", _job(name)(rank, **kwargs))
         except BaseException as e:  # noqa: BLE001 - reported to the test
             result = ("error", (type(e).__name__, str(e), traceback.format_exc()))
         conn.send(result)
