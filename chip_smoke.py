@@ -93,8 +93,9 @@ the card (``cuda:0``), in phases, each printing one line:
 14. the precision table: FIR(255), the resampler and a seeded random 64->2
     mix at (64, 9408) and the slice as a whole, dB against float64 and ms (CUDA events
     for the ops, synchronized wall for the slice) under ``'highest'``,
-    ``'high'`` (3xTF32) and ``'default'``; ``'high'`` must read >= 100 dB on
-    the slice; and the biquad's bits do not move with the knob on the
+    ``'high'`` (3xTF32), ``'mixed'`` (five TF32 products) and
+    ``'default'``; ``'high'`` and ``'mixed'`` must read >= 100 dB on the
+    slice and ``'mixed'`` >= 100 dB at each op; and the biquad's bits do not move with the knob on the
     kernel path and in a sharded ``BiquadStage`` (phase 3 holds the plain
     versions to the same);
 15. the sharded main path on one rank at full width: a 1x1 mesh (no process
@@ -178,7 +179,28 @@ the card (``cuda:0``), in phases, each printing one line:
     rule and the output equals the plain run's; (c) rank 2's sink raises at
     block 2: every rank's ``wait()`` raises within 15 s with the group
     timeout left at 60 s, rank 2 with its own error, the others with a
-    ``RunError`` from ``PeerAbortError``.
+    ``RunError`` from ``PeerAbortError``;
+21. the 8 examples of ``examples/torch/`` on the card, each as a
+    subprocess in a session of its own with its own time limit (all its
+    processes killed when it passes), through the entry points a user
+    calls: ``fm_receiver.py`` (message correlation >= 0.999),
+    ``reverb_file.py`` (88,200 frames written; the card's ``out.wav`` >= 100
+    dB against the same ``in.wav`` through the same line run by ``run`` with
+    ``device="cpu"`` in this process), ``mastering_chain.py`` (exactly
+    88,200 frames processed), ``live_mixing_desk.py`` (lines A, B and C
+    exactly 88,200, 88,200 and 44,100 frames), ``sharded_flagship.py`` at
+    its default ``--ranks`` (the cards: 1, a 1x1 mesh in one process, out
+    (2, 5120)) and at 4 ranks (2x2, out (2, 10240)), ``output delta:
+    True``, ``odd_shapes_and_fusion.py`` (8 ranks on 2x4: aggregation 4, 2
+    stages, out (7, 32064), >= 100 dB), ``bursty_network_stream.py`` (4
+    ranks: the resampler lands at chunk 4, out (2, 7472), >= 100 dB) and
+    ``multihost_stream.py`` (4 ranks as 2 hosts: every rank 200 chunks
+    above 100 dB). On one card the mesh examples take ``gloo+host`` (their
+    own rule; the first line they print names it). Every process of every
+    example prints its ``iir_tiles``/``biquad_section`` launches: all 0,
+    since the examples' biquads run at 1 or 2 channels, off the tile gate.
+    Printed per example: the transport and the mesh, the wall seconds, the
+    rate lines the script prints, and the launches.
 
 Phase 16 also runs, in the same ranks and on both meshes, the same two
 ``Line``s through ``Pipe(mesh=)``: the main path in blocks of 37,632 frames
@@ -194,7 +216,10 @@ the gather of the output); the round is counted apart.
 
 ``python3 chip_smoke.py --four-ranks`` runs phases 16 and 20 alone (after
 phases 1, 2 and the build), for a machine with four cards, where they take
-NCCL.
+NCCL, and then phase 21's four-rank part: ``sharded_flagship.py --ranks
+4``, ``bursty_network_stream.py`` and ``multihost_stream.py`` over NCCL, a
+card a rank, and ``odd_shapes_and_fusion.py``, whose 8 ranks share the 4
+cards over ``gloo+host``.
 
 Then one JSON line with each kernel entry point's launches on each path,
 error, times and bound, and last ``{"ok": true, "device": {...}}``. Any
@@ -206,7 +231,9 @@ non-zero and no result line is printed.
 from __future__ import annotations
 
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -1106,7 +1133,7 @@ def check_kit(port, dev) -> dict:
     return res
 
 
-PRECISIONS = ("highest", "high", "default")
+PRECISIONS = ("highest", "high", "mixed", "default")
 CHUNK15 = 147 * 2048  # BASELINE config 5's chunk: 301056 frames, 77 MB at 64 ch
 CHUNKS15 = 4
 CHUNK16 = 4 * BLOCK  # 37632 frames: 10240 resampled frames a rank on 1x4
@@ -1267,8 +1294,12 @@ def check_precision(port, dev, x, oracle) -> dict:
             wall = time.perf_counter() - t0
         res["slice"][name] = {"db": float(snr_db(oracle, y)), "ms": 1e3 * wall}
     require(config.fp32_pinned(), "the precision is back at 'highest'")
-    require(res["slice"]["high"]["db"] >= 100,
-            f"the slice under 'high' {res['slice']['high']['db']:.1f} dB < 100")
+    for name in ("high", "mixed"):
+        require(res["slice"][name]["db"] >= 100,
+                f"the slice under {name!r} {res['slice'][name]['db']:.1f} dB < 100")
+    for what in sites:
+        require(res[what]["mixed"]["db"] >= 100,
+                f"{what} under 'mixed' {res[what]['mixed']['db']:.1f} dB < 100")
     require(res["slice"]["highest"]["db"] >= 100, "the slice under 'highest'")
 
     # the knob does not move the biquad: the kernel and a sharded stage
@@ -2483,6 +2514,169 @@ def say_four_ranks(s16: dict, card: str) -> None:
                   f"the plain run; on {card}")
 
 
+EXAMPLES21 = HERE / "examples" / "torch"
+EXAMPLE_LIMIT_S = 240  # phase 21: one example's time limit, its ranks included
+LAUNCH_LINE = re.compile(r"kernel launches: iir_tiles (\d+), biquad_section (\d+)")
+
+
+def run_example(script: str, *args: str, processes: int = 1) -> dict:
+    """Phase 21: ``examples/torch/<script> args`` on the card, in a session
+    of its own, killed with every process it started when it passes
+    ``EXAMPLE_LIMIT_S``. Requires exit code 0 and, from each of its
+    ``processes``, a launch line with no kernel launch."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(EXAMPLES21 / script), *args],
+                            cwd=str(HERE), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"check failed: {script} {args} passed its "
+                           f"{EXAMPLE_LIMIT_S} s limit")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)  # ranks left behind, if any
+        except ProcessLookupError:
+            pass
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"{script} {args} exited with "
+            f"{proc.returncode}:\n{out[-3000:]}\n{err[-6000:]}")
+    launches = [(int(a), int(b)) for a, b in LAUNCH_LINE.findall(out)]
+    require(len(launches) == processes,
+            f"{script}: {len(launches)} launch lines for {processes} processes")
+    require(all(n == (0, 0) for n in launches),
+            f"{script} launched a biquad kernel off the tile gate: {launches}")
+    lines = out.splitlines()
+    return {"script": script, "args": list(args), "stdout": out, "wall": wall,
+            "first": lines[0], "launches": launches,
+            "rates": [ln.strip() for ln in lines if "Msamples/s" in ln]}
+
+
+def grab(pattern: str, text: str, what: str):
+    m = re.search(pattern, text)
+    require(m is not None, f"{what}: no line matching {pattern!r} in\n{text}")
+    return m.groups()
+
+
+def example_reverb(port) -> dict:
+    """Phase 21's ``reverb_file.py``: the card's output file against the same
+    line run by ``run`` on the CPU in this process."""
+    import importlib.util
+    import tempfile
+
+    from pipe_tpu_torch import native
+    from pipe_tpu_torch.signal import snr_db
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_in, wav_out, wav_ref = (str(Path(tmp) / n)
+                                    for n in ("in.wav", "out.wav", "ref.wav"))
+        r = run_example("reverb_file.py", wav_in, wav_out)
+        spec = importlib.util.spec_from_file_location(
+            "reverb_file", EXAMPLES21 / "reverb_file.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        line, _ = mod.reverb_line(wav_in, wav_ref)
+        port.run(4096, line, lookahead=8, device="cpu")
+        got, _ = read_wav(native, wav_out)
+        ref, _ = read_wav(native, wav_ref)
+    (frames,) = grab(r"wrote (\d+) frames", r["stdout"], "reverb_file.py")
+    require(int(frames) == 88200 and got.shape == ref.shape == (2, 88200),
+            f"reverb_file.py wrote {frames} frames, files {got.shape} {ref.shape}")
+    r["db"] = float(snr_db(ref, got))
+    require(r["db"] >= 100, f"reverb_file.py card vs CPU {r['db']:.1f} dB")
+    r["checks"] = f"88200 frames written, card vs CPU run {r['db']:.1f} dB"
+    return r
+
+
+def check_examples(port, count: int, four_ranks: bool) -> list:
+    """Phase 21 (see the module docstring); with ``four_ranks`` its part for
+    a machine with four cards."""
+    mesh_transport = "nccl" if count >= 4 else "gloo+host"
+
+    def flagship(*args):
+        n = int(args[1]) if args else max(1, count)
+        r = run_example("sharded_flagship.py", *args, processes=n)
+        ch = 2 if n % 2 == 0 and n >= 2 else 1
+        shape = grab(r"out shape \((\d+), (\d+)\)", r["stdout"], "sharded_flagship.py")
+        want = (2, 5120 * (n // ch))
+        require(tuple(map(int, shape)) == want and "output delta: True" in r["stdout"],
+                f"sharded_flagship.py {args}: out {shape}, expected {want}, delta True")
+        require(n == 1 or f"transport: {mesh_transport}" in r["first"], r["first"])
+        r["checks"] = f"out {want}, output delta True"
+        return r
+
+    def odd_shapes():
+        r = run_example("odd_shapes_and_fusion.py", processes=8)
+        t = r["stdout"]
+        agg, = grab(r"block aggregation: (\d+)", t, "odd_shapes")
+        stages, = grab(r"stages after fusion: (\d+)", t, "odd_shapes")
+        c, n, db = grab(r"out \((\d+), (\d+)\), SNR vs oracle: ([\d.]+) dB", t, "odd_shapes")
+        require((agg, stages, c, n) == ("4", "2", "7", "32064") and float(db) >= 100,
+                f"odd_shapes_and_fusion.py: {agg} {stages} ({c}, {n}) {db} dB")
+        require("transport: gloo+host" in r["first"], r["first"])
+        r["checks"] = f"aggregation 4, 2 stages, out (7, 32064), {db} dB"
+        return r
+
+    def bursty():
+        r = run_example("bursty_network_stream.py", processes=4)
+        t = r["stdout"]
+        at, = grab(r"landed at chunk (\d+)", t, "bursty")
+        c, n, db = grab(r"out \((\d+), (\d+)\), SNR vs float64 oracle: ([\d.]+) dB",
+                        t, "bursty")
+        require((at, c, n) == ("4", "2", "7472") and float(db) >= 100,
+                f"bursty_network_stream.py: chunk {at}, ({c}, {n}), {db} dB")
+        require(f"transport: {mesh_transport}" in r["first"], r["first"])
+        r["checks"] = f"landed at chunk 4, out (2, 7472), {db} dB"
+        return r
+
+    def multihost():
+        r = run_example("multihost_stream.py", processes=4)
+        hosts = re.findall(r"host (\d): (\d+) chunks streamed, SNR ([\d.]+) dB",
+                           r["stdout"])
+        require(sorted(h for h, _, _ in hosts) == ["0", "0", "1", "1"]
+                and all(int(c) == 200 and float(db) >= 100 for _, c, db in hosts),
+                f"multihost_stream.py: {hosts}")
+        require(f"transport: {mesh_transport}" in r["first"], r["first"])
+        r["checks"] = "200 chunks on every rank, SNR " + "/".join(
+            db for _, _, db in hosts) + " dB"
+        return r
+
+    if four_ranks:
+        return [flagship("--ranks", "4"), odd_shapes(), bursty(), multihost()]
+    res = []
+    r = run_example("fm_receiver.py")
+    corr, = grab(r"message correlation ([\d.]+)", r["stdout"], "fm_receiver.py")
+    require(float(corr) >= 0.999, f"fm_receiver.py correlation {corr}")
+    r["checks"] = f"message correlation {corr}"
+    res.append(r)
+    res.append(example_reverb(port))
+    r = run_example("mastering_chain.py")
+    require("processed 88200 frames" in r["stdout"], r["stdout"])
+    r["checks"] = "88200 frames processed"
+    res.append(r)
+    r = run_example("live_mixing_desk.py")
+    counts = [grab(rf"line {k}[^:]*: (\d+) frames", r["stdout"], "live_mixing_desk.py")[0]
+              for k in "ABC"]
+    require(counts == ["88200", "88200", "44100"], f"live_mixing_desk.py {counts}")
+    r["checks"] = "lines A, B, C " + "/".join(counts) + " frames"
+    res.append(r)
+    res += [flagship(), flagship("--ranks", "4"), odd_shapes(), bursty(), multihost()]
+    return res
+
+
+def say_examples(res: list, card: str) -> None:
+    for r in res:
+        say(21, f"examples/torch/{r['script']} {' '.join(r['args'])}: "
+                f"{r['first'] if 'transport' in r['first'] else 'one process, no mesh'}"
+                f"; {r['checks']}; {r['wall']:.2f} s wall"
+                + (f"; rate: {' | '.join(r['rates'])}" if r["rates"] else "")
+                + f"; iir_tiles/biquad_section launches per process "
+                  f"{r['launches']} (0: off the tile gate); on {card}")
+
+
 def main(only_four_ranks: bool = False) -> None:
     """Every phase; with ``only_four_ranks`` (``--four-ranks``, for a machine
     with four cards) phases 1, 2 and 4 and then phases 16 and 20 alone."""
@@ -2510,6 +2704,9 @@ def main(only_four_ranks: bool = False) -> None:
     if only_four_ranks:
         kernels.build()
         say_four_ranks(check_four_ranks(dev, count), card)
+        say(21, "odd_shapes_and_fusion.py has 8 ranks for 4 cards: it stays "
+                "on gloo+host (the examples' rule: nccl needs a card a rank)")
+        say_examples(check_examples(port, count, four_ranks=True), card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": count}}), flush=True)
         return
@@ -2751,6 +2948,9 @@ def main(only_four_ranks: bool = False) -> None:
             f"group equals that line run alone, iir_tiles "
             f"{s19s['add_line']['launches']}; on {card}")
 
+    s21 = check_examples(port, count, four_ranks=False)
+    say_examples(s21, card)
+
     main_shape = KERNEL_SHAPES[-1]
     section_paths = {"run (phase 7)": launches["biquad_section"],
                      "Pipe line A (phase 8)": pres["launches"]["pipe-exec-line0"],
@@ -2782,6 +2982,11 @@ def main(only_four_ranks: bool = False) -> None:
                     "(phase 20 a)"] = v["launches"]
         tiles_paths[f"Pipe(mesh={k}) insert_processor, each of 4 ranks "
                     "(phase 20 d)"] = v["insert_launches"]
+
+    for r in s21:  # every process of every example: 0, off the tile gate
+        what = f"examples/torch/{r['script']} {' '.join(r['args'])} (phase 21)"
+        tiles_paths[what] = sum(n for n, _ in r["launches"])
+        section_paths[what] = sum(n for _, n in r["launches"])
 
     def kernel_entry(name, by_path, results):
         r = results[main_shape]

@@ -20,7 +20,7 @@ the async ``Pipe`` with live ``push``/``at_block``, ``insert_processor``
 and ``add_line``, ``lookahead`` and ``batch_blocks``), the ``mock`` test
 kit, ``StatsRecorder``/``trace``, ``process`` and ``checkpoint``, WAV file
 I/O (``WavSource``/``WavSink`` over the native ring and codec), the
-``'high'`` (3xTF32) precision, and of ``parallel`` the mesh, the halo
+``'high'`` (3xTF32) and ``'mixed'`` precisions, and of ``parallel`` the mesh, the halo
 primitives and the ``ShardedChain`` with the stages of the sharded main
 path and the EQ, one process per shard over ``torch.distributed``.
 """

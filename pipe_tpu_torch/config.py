@@ -17,13 +17,20 @@ pins IEEE FP32 for cuBLAS AND cuDNN. ``'default'`` allows TF32 in both.
 ``'high'`` is the three-pass emulation (3xTF32), the counterpart of the JAX
 package's ``'high'``: each float32 operand is split into a head that TF32
 holds exactly and the remainder, and the product is formed as ``a_hi b_hi +
-a_hi b_lo + a_lo b_hi``, three TF32 products accumulated in FP32. The JAX
-package's ``'mixed'`` has no counterpart and raises ``ValueError``.
+a_hi b_lo + a_lo b_hi``, three TF32 products accumulated in FP32.
+``'mixed'`` is the counterpart of the JAX package's per-operand pair
+``(HIGHEST, HIGH)`` carried onto TF32: the first operand (the one the JAX
+call takes first: the input of a convolution, the matrix of a mix) is split
+exactly into three TF32 terms ``a1 + a2 + a3`` (the head, then the head of
+the remainder, then what is left), the second into two, ``b1 + b2``, and
+the five products of order at least 2^-22 of the operands' magnitudes
+(``a1 b1``, ``a1 b2``, ``a2 b1``, ``a2 b2``, ``a3 b1``) are summed smallest
+first: five TF32 products instead of ``'high'``'s three.
 
 Every non-recursive product of the port (FIR, resampler, fused banks,
 mixer, channelizer) goes through :func:`matmul`, :func:`einsum` or
 :func:`conv1d` below, which read the precision name once per call and so
-take one product or three consistently within a call. The recursive paths
+take one, three or five products consistently within a call. The recursive paths
 (the biquad's tile product, its prefix scans and its defect) do not consult
 the knob at all: they compute in float64 or elementwise and give the same
 bits under every name.
@@ -59,7 +66,7 @@ import torch
 import torch.nn.functional as F
 
 # precision name -> torch fp32_precision value for cuBLAS and cuDNN
-_NAMED = {"default": "tf32", "high": "tf32", "highest": "ieee"}
+_NAMED = {"default": "tf32", "high": "tf32", "mixed": "tf32", "highest": "ieee"}
 
 _matmul_precision = "highest"
 _default_device = None  # set by set_default_device; None: the current card
@@ -112,7 +119,8 @@ def fp32_pinned() -> bool:
 def set_matmul_precision(p: str) -> None:
     """Set the float32 precision of matmuls and convolutions:
     ``'highest'`` (IEEE FP32), ``'high'`` (3xTF32 through the helpers of
-    this module) or ``'default'`` (TF32)."""
+    this module), ``'mixed'`` (five TF32 products: three terms of the first
+    operand, two of the second) or ``'default'`` (TF32)."""
     global _matmul_precision
     if not isinstance(p, str):
         raise TypeError(f"expected a precision name, got {type(p)!r}")
@@ -176,14 +184,21 @@ def _split_tf32(a):
 def _bilinear(fn, a, b):
     """``fn(a, b)`` for a bilinear ``fn`` at the current precision: one call
     under ``'highest'`` and ``'default'`` (the backends' flags decide how it
-    is computed on the card), three under ``'high'``, and three under
-    ``'highest'`` on the card while another thread holds the flags at TF32.
-    The name (this thread's bound one, else the process-wide one) is read
-    once, so a change made by another thread cannot mix the two within a
-    call."""
+    is computed on the card), three under ``'high'``, five under
+    ``'mixed'``, and three under ``'highest'`` on the card while another
+    thread holds the flags at TF32. The name (this thread's bound one, else
+    the process-wide one) is read once, so a change made by another thread
+    cannot mix the paths within a call."""
     name = matmul_precision()
-    if a.dtype is not torch.float32 or not (
-            name == "high" or (name == "highest" and a.is_cuda
+    if a.dtype is not torch.float32:
+        return fn(a, b)
+    if name == "mixed":
+        a1, r = _split_tf32(a)
+        a2, a3 = _split_tf32(r)
+        b1, b2 = _split_tf32(b)
+        return ((((fn(a3, b1) + fn(a2, b2)) + fn(a2, b1)) + fn(a1, b2))
+                + fn(a1, b1))
+    if not (name == "high" or (name == "highest" and a.is_cuda
                                and not fp32_pinned())):
         return fn(a, b)
     a_hi, a_lo = _split_tf32(a)

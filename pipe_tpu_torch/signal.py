@@ -43,6 +43,12 @@ class Signal:
     def dtype(self):
         return self.data.dtype
 
+    def mask(self) -> torch.Tensor:
+        """``(1, block_size)`` mask in the data's dtype, on the data's
+        device: 1.0 for valid frames, else 0.0."""
+        idx = torch.arange(self.block_size, device=self.data.device)[None, :]
+        return (idx < self.frames).to(self.data.dtype)
+
     def masked(self) -> "Signal":
         """Return a signal with invalid frames zeroed."""
         return Signal(zero_past(self.data, self.frames), self.frames)
@@ -89,6 +95,13 @@ def silence(channels: int, block_size: int, device=None,
         torch.zeros((channels, block_size), dtype=dtype, device=device),
         block_size,
     )
+
+
+def empty(channels: int, block_size: int, device=None,
+          dtype=DEFAULT_DTYPE) -> Signal:
+    """An all-zero block with zero valid frames (an EOF placeholder)."""
+    return Signal(
+        torch.zeros((channels, block_size), dtype=dtype, device=device), 0)
 
 
 def from_array(x, frames: Optional[int] = None, device=None,

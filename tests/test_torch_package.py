@@ -39,12 +39,13 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    + sorted((REPO / "examples" / "torch").glob("*.py")),
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import(path):
-    """Neither the package nor the card's smoke script imports JAX or the
-    JAX package (the card machine has no JAX)."""
+    """Neither the package, nor the card's smoke script, nor the port's
+    examples import JAX or the JAX package (the card machine has no JAX)."""
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "pipe_tpu"}, roots
 
@@ -111,8 +112,12 @@ def test_fp32_pinned_for_cublas_and_cudnn():
         assert config.matmul_precision() == "high"  # TF32, the helpers split
         assert not config.fp32_pinned()
     assert config.fp32_pinned()
+    with config.matmul_precision_scope("mixed"):  # five TF32 products
+        assert config.matmul_precision() == "mixed"
+        assert not config.fp32_pinned()
+    assert config.fp32_pinned()
     with pytest.raises(ValueError):
-        config.set_matmul_precision("mixed")
+        config.set_matmul_precision("bogus")
 
 
 def test_resampler_state_continues_across_packages():
@@ -162,6 +167,40 @@ def test_signal_helpers():
     assert quiet.frames == 8 and not quiet.data.any()
     with pytest.raises(ValueError):
         SignalProperties(44100.0, 0)
+
+
+@pytest.mark.parametrize("frames", [8, 5, 0], ids=["full", "partial", "none"])
+def test_signal_mask_matches_jax(frames):
+    """``Signal.mask`` is the JAX package's ``(1, B)`` mask in the data's
+    dtype, on the data's device, and ``masked`` zeroes what it zeroes."""
+    x = np.arange(24.0, dtype=np.float32).reshape(3, 8) + 1.0
+    sig = from_array(x, frames=frames)
+    jsig = JSignal(jnp.asarray(x), jnp.asarray(frames, jnp.int32))
+    mask = sig.mask()
+    assert mask.shape == (1, 8) and mask.dtype == torch.float32
+    assert mask.device == sig.data.device
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jsig.mask()))
+    np.testing.assert_array_equal(sig.masked().data.numpy(),
+                                  np.asarray(jsig.masked().data))
+    f64 = Signal(torch.ones((2, 4), dtype=torch.float64), 3)
+    assert f64.mask().dtype == torch.float64
+
+
+@pytest.mark.parametrize("channels, block", [(1, 1), (2, 8), (3, 512)])
+def test_empty_matches_jax(channels, block):
+    """``signal.empty``: the JAX package's EOF placeholder, a zero block
+    with no valid frame, on the device given (as ``silence``)."""
+    from pipe_tpu import signal as jsignal
+    from pipe_tpu_torch import signal as tsignal
+
+    got, want = tsignal.empty(channels, block), jsignal.empty(channels, block)
+    assert got.frames == int(want.frames) == 0
+    assert got.data.shape == want.data.shape == (channels, block)
+    assert got.data.dtype == torch.float32 and not got.data.any()
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+    assert not got.mask().any()
+    assert tsignal.empty(2, 4, device="cpu", dtype=torch.float64).data.dtype == torch.float64
+    assert tsignal.silence(2, 4).data.device == got.data.device
 
 
 @pytest.mark.parametrize(

@@ -138,6 +138,74 @@ def test_high_agrees_with_highest_at_every_routed_site(site):
         assert snr_db(jout.astype(np.float64), high) > VS_FLOAT64_DB
 
 
+def _jax_resample_gather():
+    """The JAX Resampler's gather path on the block and phase offset of
+    ``_resample_gather``: a partial block of 1000 frames at offset 7."""
+    from pipe_tpu.signal import Signal as JSignal, SignalProperties as JProps
+
+    C, B = D["x"].shape
+    comp = jres.Resampler(160, 147).processor()(None, B, JProps(44100.0, C))
+    state = {"hist": j("hist"), "off": jnp.asarray(7, jnp.int32)}
+    _, out = comp.step(state, {"hp": j("hp")},
+                       JSignal(j("x"), jnp.asarray(1000, jnp.int32)))
+    return out.data[:, : int(out.frames)]
+
+
+MIXED_VS_JAX_DB = 110.0
+
+
+@pytest.mark.parametrize("site", SITES)
+def test_mixed_agrees_with_jax_mixed_at_every_routed_site(site):
+    """``'mixed'`` splits the first operand into three TF32 terms and the
+    second into two, as the JAX pair ``(HIGHEST, HIGH)`` treats the lhs and
+    the rhs: at every routed site the port under ``'mixed'`` agrees with
+    the JAX package under ``'mixed'``, and the five products really ran
+    (on the CPU they differ from the one product by rounding only)."""
+    port_fn, jax_fn = SITES[site]
+    mixed = _under("mixed", lambda: port_fn(t32))
+    highest = _under("highest", lambda: port_fn(t32))
+    ref = port_fn(t64).numpy()
+    assert not np.array_equal(mixed, highest)  # the split path really ran
+    assert snr_db(highest, mixed) > HIGH_VS_HIGHEST_DB, snr_db(highest, mixed)
+    assert snr_db(ref, mixed) > VS_FLOAT64_DB, snr_db(ref, mixed)
+    with jconfig.matmul_precision_scope("mixed"):
+        jout = np.asarray((jax_fn or _jax_resample_gather)())
+    db = snr_db(jout.astype(np.float64), mixed)
+    assert db >= MIXED_VS_JAX_DB, db
+
+
+def test_mixed_split_is_exact(rng):
+    """The first operand's three terms sum to it exactly, each of the first
+    two fits TF32, and the third is below 2^-21 of the value."""
+    a = torch.tensor((rng.standard_normal(4096)
+                      * 10.0 ** rng.integers(-20, 20, 4096)).astype(np.float32))
+    a1, r = config._split_tf32(a)
+    a2, a3 = config._split_tf32(r)
+    assert torch.equal((a1 + a2) + a3, a) and torch.equal(a2 + a3, r)
+    for term in (a1, a2):
+        assert not (term.view(torch.int32) & 0x1FFF).any()
+    assert (a3.abs() <= a.abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("fused_path", [True, False], ids=["fused", "two-stage"])
+def test_flagship_under_mixed(fused_path):
+    """The flagship's mix (and its FIR and resampler) under ``'mixed'``
+    against the JAX flagship under ``'mixed'`` on the same input."""
+    from pipe_tpu.flagship import make_flagship as jmake
+
+    with config.matmul_precision_scope("mixed"):
+        fn, state, x = make_flagship(channels=4, chunk=147 * 8, fused=fused_path)
+        state, y1 = fn(state, x)
+        _, y2 = fn(state, x)
+    got = torch.cat([y1, y2], dim=1).numpy()
+    with jconfig.matmul_precision_scope("mixed"):
+        jfn, jstate, _ = jmake(channels=4, chunk=147 * 8, fused=fused_path)
+        jstate, j1 = jfn(jstate, jnp.asarray(x.numpy()))
+        _, j2 = jfn(jstate, jnp.asarray(x.numpy()))
+    jout = np.concatenate([np.asarray(j1), np.asarray(j2)], axis=1)
+    assert snr_db(jout.astype(np.float64), got) >= MIXED_VS_JAX_DB
+
+
 @pytest.mark.parametrize("fused_path", [True, False], ids=["fused", "two-stage"])
 def test_flagship_under_high(fused_path):
     """The slice's chunk function (FIR -> resample -> mix): 'high' against
@@ -164,13 +232,14 @@ def test_sharded_mix_stage_consults_the_knob(rng):
     m = rng.standard_normal((2, 4)).astype(np.float32)
     x = rng.standard_normal((4, 512)).astype(np.float32)
     outs = {}
-    for name in ("highest", "high"):
+    for name in ("highest", "high", "mixed"):
         with config.matmul_precision_scope(name):
             chain = parallel.ShardedChain(parallel.make_mesh(1, 1),
                                           [parallel.MixStage(m)], 4, 512)
             outs[name] = chain.step(x).numpy()
-    assert not np.array_equal(outs["high"], outs["highest"])
-    assert snr_db(outs["highest"], outs["high"]) > HIGH_VS_HIGHEST_DB
+    for name in ("high", "mixed"):
+        assert not np.array_equal(outs[name], outs["highest"])
+        assert snr_db(outs["highest"], outs[name]) > HIGH_VS_HIGHEST_DB
 
 
 def test_split_is_exact_and_the_head_fits_tf32(rng):
@@ -224,8 +293,11 @@ def test_precision_names_and_scope():
     finally:
         config.set_matmul_precision("highest")
     assert config.fp32_pinned()
-    with pytest.raises(ValueError, match="mixed"):
-        config.set_matmul_precision("mixed")  # no counterpart in the port
+    with config.matmul_precision_scope("mixed"):  # the JAX package's name
+        assert config.matmul_precision() == "mixed" and not config.fp32_pinned()
+    assert config.fp32_pinned()
+    with pytest.raises(ValueError, match="bogus"):
+        config.set_matmul_precision("bogus")
     with pytest.raises(TypeError):
         config.set_matmul_precision(3)
     # float64 operands pass through one product under every name
@@ -293,9 +365,9 @@ def test_recursive_paths_do_not_consult_the_knob(rng, path):
                                       [parallel.BiquadStage(sos)], 8, 2560)
         return chain.step(x)
 
-    outs = [_under(name, run) for name in ("highest", "high", "default")]
-    np.testing.assert_array_equal(outs[1], outs[0])
-    np.testing.assert_array_equal(outs[2], outs[0])
+    outs = [_under(name, run) for name in ("highest", "high", "mixed", "default")]
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
 
 
 def _pipe_under_flip(pkg, x, flip_to=None, start_as="highest"):
