@@ -91,6 +91,7 @@ from pipe_tpu_torch.errors import FlushError, StartError, ret_exec_errors
 from pipe_tpu_torch.graph import Route
 from pipe_tpu_torch.parallel.mesh import CH_AXIS, TIME_AXIS
 from pipe_tpu_torch.parallel.meshctx import mesh_scope
+from pipe_tpu_torch.profiling import clock
 from pipe_tpu_torch.signal import Signal, zero_past
 from pipe_tpu_torch.tree import tree_flatten, tree_unflatten
 
@@ -169,8 +170,9 @@ class _HostBuffers:
 
     KEEP = 64  # free buffers kept; the in-flight window needs far fewer
 
-    def __init__(self):
+    def __init__(self, stats=None):
         self._free: list = []  # [(buffer, event or None)], oldest first
+        self.stats = stats  # counts the buffers made (LineStats or None)
 
     def take(self, shape) -> torch.Tensor:
         shape = tuple(shape)
@@ -178,6 +180,8 @@ class _HostBuffers:
             if tuple(buf.shape) == shape and (ev is None or ev.query()):
                 del self._free[i]
                 return buf
+        if self.stats is not None:
+            self.stats.pinned_allocs += 1
         return torch.empty(shape, dtype=torch.float32, pin_memory=True)
 
     def give(self, buf: torch.Tensor, event=None) -> None:
@@ -189,9 +193,10 @@ class _HostBuffers:
 class _Block:
     """One dispatched block awaiting resolution: its output (a pinned host
     buffer being filled, or a CPU tensor), valid frames, EOF flag (None, or
-    a pinned bool filled by the device) and the event after its work."""
+    a pinned bool filled by the device) and the event after its work; its
+    stream ``index`` is set where spans are recorded."""
 
-    __slots__ = ("out", "frames", "eof", "event")
+    __slots__ = ("out", "frames", "eof", "event", "index")
 
     def __init__(self, frames: int):
         self.out = None
@@ -243,7 +248,9 @@ class LineExecutor:
         # as ``group_dest`` so feed collection can re-check for targets
         self.dest: Optional[mutable.Destination] = None
         self.group_dest: Optional[mutable.Destination] = None
-        self.stats = stats  # pipe_tpu_torch.profiling.LineStats or None
+        # pipe_tpu_torch.profiling.LineStats or None: every span site below
+        # tests it once and records nothing without one
+        self.stats = stats
         # up to `lookahead` dispatches in flight before the oldest is
         # resolved; 1 = the reference's exact next-buffer semantics
         self.lookahead = max(1, lookahead)
@@ -253,7 +260,7 @@ class LineExecutor:
         self._fed_eof = False  # feed returned None (held blocks may remain)
         # mesh re-chunking: (C, n) pieces of feed data not yet a full block
         self._fed_residue: list = []
-        self._host_bufs = _HostBuffers()
+        self._host_bufs = _HostBuffers(stats)
         # the precision name this line's products use, bound at start_hook
         # (None: the process-wide name, read at every call)
         self.precision: Optional[str] = None
@@ -364,12 +371,21 @@ class LineExecutor:
     def _sweep_scoped(self, fed, commit: bool):
         route = self.route
         src, procs, sink = route.source, route.processors, route.sink
+        rec, k = self.stats, self.blocks_dispatched
         eof = None
         if fed is not None:
+            if rec is not None:
+                t0 = clock()
             sig = Signal(self._fed_to_device(fed[0]), fed[1])
+            if rec is not None:
+                rec.span("upload", t0, k)
             src_state = src.state
         else:
+            if rec is not None:
+                t0 = clock()
             src_state, sig, eof = src.step(src.state, src.params)
+            if rec is not None:
+                rec.span("source", t0, k)
             if isinstance(eof, torch.Tensor) and not eof.is_cuda:
                 eof = bool(eof)
             if not isinstance(eof, torch.Tensor):
@@ -386,11 +402,19 @@ class LineExecutor:
 
         proc_states = []
         for proc in procs:
+            if rec is not None:
+                t0 = clock()
             new_state, sig = proc.step(proc.state, proc.params, sig)
+            if rec is not None:
+                rec.span(rec.op_name(proc.step), t0, k)
             proc_states.append(new_state)
         sink_state = sink.state
         if sink.step is not None:
+            if rec is not None:
+                t0 = clock()
             sink_state = sink.step(sink.state, sink.params, sig)
+            if rec is not None:
+                rec.span("sink", t0, k)
 
         if not commit:
             if self._multi and sink.receive is not None:
@@ -407,7 +431,13 @@ class LineExecutor:
             proc.state = st
         sink.state = sink_state
         self.blocks_dispatched += 1
-        return self._stage(sig, eof)
+        if rec is None:
+            return self._stage(sig, eof)
+        t0 = clock()
+        blk = self._stage(sig, eof)
+        blk.index = k
+        rec.span("stage_out", t0, k)
+        return blk
 
     def _stage(self, sig: Signal, eof) -> _Block:
         """Start the block's output (and device EOF flag) on its way to the
@@ -437,18 +467,26 @@ class LineExecutor:
         blocks). Returns :data:`EOF` when the stream is done, else None.
         Raises on component failure. ``stop_before`` caps the dispatch at
         that absolute block index so mutations land exactly there."""
-        if self.stats is None:
+        rec = self.stats
+        if rec is None:
             return self._execute(stop_before)
-        from pipe_tpu_torch.profiling import _Timer
-
-        with _Timer(self.stats):
+        first = self.blocks_dispatched
+        t0 = rec.open()
+        try:
             return self._execute(stop_before)
+        finally:
+            rec.close(t0, first, self.blocks_dispatched)
 
     def _execute(self, stop_before=None):
         # host-side pre hooks in stage order (fault injection, pacing)
+        rec = self.stats
         for comp in self.route.components():
             if comp.host_pre is not None:
+                if rec is not None:
+                    t0 = clock()
                 comp.host_pre()
+                if rec is not None:
+                    rec.span("host_pre", t0, self.blocks_dispatched)
 
         k = self.batch_blocks
         budget = k
@@ -477,8 +515,6 @@ class LineExecutor:
             self._pending.append(blocks)
         else:
             self._pending.extend([b] for b in blocks)
-        if self.stats is not None and blocks:
-            self.stats.blocks += len(blocks) - 1
 
     def _next_target(self, frontier: int):
         """The nearest pending block target past ``frontier``, from the
@@ -492,7 +528,7 @@ class LineExecutor:
         every feed call: a feed may block for arbitrarily long, and a target
         pushed meanwhile must still split the batch. The feed's EOF (None)
         drains everything in flight so trailing blocks reach the sink."""
-        src = self.route.source
+        src, rec = self.route.source, self.stats
         feds = []
         while len(feds) < budget:
             nt = self._next_target(self.blocks_dispatched)
@@ -506,18 +542,26 @@ class LineExecutor:
             if self.mesh is not None:
                 # a partial block must be the stream's last on a mesh:
                 # short reads are re-chunked into full blocks
-                got = self._feed_full_block(src)
+                got = self._feed_full_block(src, self.blocks_dispatched + len(feds))
                 if got is None:
                     break  # EOF with no residue, or the run was cancelled
                 feds.append(got)
                 if got[1] < self.block_size:
                     break  # the final partial block, at EOF
                 continue
+            if rec is not None:
+                k, t0 = self.blocks_dispatched + len(feds), clock()
             data = src.feed(self.block_size)
+            if rec is not None:
+                rec.span("feed", t0, k)
             if data is None:
                 self._fed_eof = True
                 break
+            if rec is not None:
+                t0 = clock()
             feds.append(self._prep_fed_host(data))
+            if rec is not None:
+                rec.span("stage_in", t0, k)
             if feds[-1][1] < self.block_size:
                 break  # a partial block is dispatched alone
         # a target may have arrived during the last blocking feed call,
@@ -534,17 +578,23 @@ class LineExecutor:
             return EOF
         return None
 
-    def _feed_full_block(self, src):
+    def _feed_full_block(self, src, k: int):
         """Assemble one FULL block (or the final partial one at EOF) from
         the feed, parking over- and under-runs in ``_fed_residue``: the
         mesh twin of the reference's accept-any-length short-read slicing
         (``pipe.go:404-406``). Returns None at EOF with nothing left (and
         when the run was cancelled while the feed had nothing ready), else
         ``(this rank's block, valid frames)``. The repacking is a function
-        of the stream alone, so ranks fed the same stream stay aligned."""
+        of the stream alone, so ranks fed the same stream stay aligned.
+        ``k`` is the block's stream index, for the spans."""
+        rec = self.stats
         have = sum(a.shape[1] for a in self._fed_residue)
         while have < self.block_size and not self._fed_eof:
+            if rec is not None:
+                t0 = clock()
             data = src.feed(self.block_size - have)
+            if rec is not None:
+                rec.span("feed", t0, k)
             if data is None:
                 self._fed_eof = True
                 break
@@ -574,7 +624,12 @@ class LineExecutor:
                 self._fed_residue.pop(0)
             taken += take
         data = chunks[0] if len(chunks) == 1 else np.concatenate(chunks, axis=1)
-        return self._prep_fed_host(data)
+        if rec is None:
+            return self._prep_fed_host(data)
+        t0 = clock()
+        got = self._prep_fed_host(data)
+        rec.span("stage_in", t0, k)
+        return got
 
     def _dispatch_device(self, budget: int):
         blocks, eof = [], False
@@ -593,12 +648,16 @@ class LineExecutor:
     def _resolve_batch(self, k: int):
         """Resolve the ``k`` oldest in-flight entries: wait for each block's
         event, then deliver outputs / EOF in stream order."""
-        sink = self.route.sink
+        sink, rec = self.route.sink, self.stats
         batch, self._pending = self._pending[:k], self._pending[k:]
         for entry in batch:
             for blk in entry:
                 if blk.event is not None:
+                    if rec is not None:
+                        t0 = clock()
                     blk.event.synchronize()
+                    if rec is not None:
+                        rec.span("wait", t0, blk.index)
                 if blk.eof is not None and bool(blk.eof):
                     # blocks dispatched after EOF are gated no-ops
                     self._pending.clear()
@@ -608,10 +667,17 @@ class LineExecutor:
                     if self.mesh is not None:  # slice off channel pad rows
                         rows = self.route.prev_props(
                             len(self.route.processors)).channels
+                    if rec is not None:
+                        t0 = clock()
                     host = blk.out[:rows, : blk.frames].numpy().copy()
                     if blk.out.is_pinned():
                         self._host_bufs.give(blk.out)
+                    if rec is not None:
+                        rec.span("copy_out", t0, blk.index)
+                        t0 = clock()
                     sink.receive(host)
+                    if rec is not None:
+                        rec.span("receive", t0, blk.index)
         return None
 
     def dispatch_noop_to(self, target: int) -> None:

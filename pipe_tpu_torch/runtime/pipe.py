@@ -78,6 +78,7 @@ from pipe_tpu_torch.graph import (
     make_routes_aggregated,
 )
 from pipe_tpu_torch.parallel.meshctx import mesh_scope
+from pipe_tpu_torch.profiling import clock
 from pipe_tpu_torch.runtime.executor import (
     EOF,
     LineExecutor,
@@ -450,8 +451,11 @@ class Pipe:
                     # strict on a mesh of several ranks: a late target is
                     # an error, not a rank-local late landing
                     ms = dest.take_due(frontier, strict=sync is not None)
-                    if ms:
+                    if ms and self.stats is None:
                         executor.apply_mutations(ms)
+                    elif ms:
+                        with self.stats.mutating(executor.name, frontier):
+                            executor.apply_mutations(ms)
                     # cap the next dispatch at the nearest block-indexed
                     # mutation so it lands exactly there
                     stop_before = dest.next_target(frontier)
@@ -539,7 +543,9 @@ class Pipe:
                 continue
             if item is None:
                 return
-            ms, at_block = item
+            ms, at_block, request = item
+            if self.stats is not None:
+                t0 = clock()
             for m in ms:
                 if m.context == self.mctx:
                     try:
@@ -558,6 +564,8 @@ class Pipe:
                         self._merger.report(e)
                         continue
             self.pusher.push()
+            if self.stats is not None:
+                self.stats.push_span("deliver", t0, request)
 
     def _all_executors_done(self) -> bool:
         m = self._merger
@@ -595,6 +603,19 @@ class Pipe:
         structure mutation with untargeted component mutations there."""
         if not self._running:
             raise RuntimeError("pipe isn't running")
+        st = self.stats
+        if st is None:
+            return self._push(mutations, at_block, None)
+        t0, request = clock(), st.new_push()
+        try:
+            self._push(mutations, at_block, request)
+        finally:
+            st.push_span("push", t0, request)
+
+    def _push(self, mutations, at_block: Optional[int],
+              request: Optional[int]) -> None:
+        """The body of :meth:`push`; ``request`` is the push's id where
+        spans are recorded."""
         if (self._multi and at_block is None
                 and any(m.context != self.mctx for m in mutations)):
             # structure mutations run in the control thread and carry
@@ -609,11 +630,15 @@ class Pipe:
                     "agreement, so their order would be undefined; push "
                     "them separately (or target the components with "
                     "at_block=)")
+            if request is not None:
+                mutations = self.stats.tagged(mutations, request, None)
             with self._untargeted_lock:
                 self._untargeted_q.append(list(mutations))
             return
         at_block = self._to_internal_block(at_block, "push")
-        self._mutations_q.put((list(mutations), at_block))
+        if request is not None:
+            mutations = self.stats.tagged(mutations, request, at_block)
+        self._mutations_q.put((list(mutations), at_block, request))
 
     def block_index(self, line: int = 0) -> int:
         """The dispatch frontier of the line's owning executor — the

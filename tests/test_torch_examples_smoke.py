@@ -87,8 +87,11 @@ def failing_rank(rank, n_ranks, fail_rank, fail_at):
     try:
         p.wait(60)
     except Exception as e:
-        print(f"rank {rank} ended: {type(e).__name__} from "
-              f"{type(e.__cause__).__name__}", flush=True)
+        # one write: with unbuffered output print() writes the line and its
+        # newline apart, and the ranks' lines interleave in the shared file
+        sys.stdout.write(f"rank {rank} ended: {type(e).__name__} from "
+                         f"{type(e.__cause__).__name__}\n")
+        sys.stdout.flush()
         raise
     print(f"rank {rank} ended: no error", flush=True)
 
