@@ -26,7 +26,10 @@ the card (``cuda:0``), in phases, each printing one line:
    back and as a replayed CUDA graph (device time alone), beside their
    bound. ``iir_tiles`` alone is held and timed the same way at the local
    blocks that the sharded chain of phases 15 and 16 gives it: (64,
-   327680), (32, 20480) and (64, 40960). Then the recurrence streamed: 43
+   327680), (32, 20480) and (64, 40960); ``biquad_section`` alone at
+   shapes off that gate, with a partial last tile: (64, 640) (the live
+   console's EQ block) and (16, 1000) (a length not a multiple of 4). Then
+   the recurrence streamed: 43
    blocks of (64, 10240) through ``_iir_apply`` with the state carried,
    >= 90 dB against a float64 ``lfilter``, one ``iir_tiles`` launch a
    block;
@@ -198,7 +201,8 @@ the card (``cuda:0``), in phases, each printing one line:
     above 100 dB). On one card the mesh examples take ``gloo+host`` (their
     own rule; the first line they print names it). Every process of every
     example prints its ``iir_tiles``/``biquad_section`` launches: all 0,
-    since the examples' biquads run at 1 or 2 channels, off the tile gate.
+    since the examples' biquads run at 1 or 2 channels, off the kernels'
+    8-channel rule.
     Printed per example: the transport and the mesh, the wall seconds, the
     rate lines the script prints, and the launches.
 
@@ -253,6 +257,11 @@ C4, B4 = 16, 8192  # BASELINE config 4: 16 channels, 8192-frame blocks
 # slice's (the sharded chain's shapes, for ``iir_tiles`` alone, are
 # SHARDED_SHAPES below)
 KERNEL_SHAPES = ((8, 4096), (C4, B4), (CHANNELS, 10240))
+# shapes that only ``biquad_section`` takes (``iir_tiles`` keeps the tile
+# gate): console64-live's EQ block after the resampler (588 * 160 / 147 =
+# 640 frames, a partial last tile) and a length that is not a multiple of 4
+# (the scalar stores)
+SECTION_SHAPES = ((CHANNELS, 640), (C4, 1000))
 N4 = SR_IN * SECONDS
 EQ_AT, GAIN_AT = 20, 30  # phase 11's retune blocks
 # the card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet)
@@ -2548,7 +2557,7 @@ def run_example(script: str, *args: str, processes: int = 1) -> dict:
     require(len(launches) == processes,
             f"{script}: {len(launches)} launch lines for {processes} processes")
     require(all(n == (0, 0) for n in launches),
-            f"{script} launched a biquad kernel off the tile gate: {launches}")
+            f"{script} launched a biquad kernel at 1 or 2 channels: {launches}")
     lines = out.splitlines()
     return {"script": script, "args": list(args), "stdout": out, "wall": wall,
             "first": lines[0], "launches": launches,
@@ -2674,7 +2683,7 @@ def say_examples(res: list, card: str) -> None:
                 f"; {r['checks']}; {r['wall']:.2f} s wall"
                 + (f"; rate: {' | '.join(r['rates'])}" if r["rates"] else "")
                 + f"; iir_tiles/biquad_section launches per process "
-                  f"{r['launches']} (0: off the tile gate); on {card}")
+                  f"{r['launches']} (0: 1 or 2 channels); on {card}")
 
 
 def main(only_four_ranks: bool = False) -> None:
@@ -2745,6 +2754,16 @@ def main(only_four_ranks: bool = False) -> None:
                        r["plain_ms"], r["bound_ms"], r["bound_by"],
                        f", new s vs plain {min(r['snr_state_db'])} dB at least"
                        if "snr_state_db" in r else "", card))
+    for i, shape in enumerate(SECTION_SHAPES):
+        sres[shape] = r = check_section(dev, shape, seed=50 + i)
+        say(5, "biquad_section {}x{} (a partial last tile, both EQ sections): "
+               "vs plain {} dB, vs float64 {} dB, max abs err {:.3g}; {:.4f} ms "
+               "a call back to back, {:.4f} ms on the device alone (CUDA "
+               "graph), plain {:.4f} ms, bound {:.5f} ms ({}), new s vs plain "
+               "{} dB at least; on {}".format(
+                   *shape, r["snr_plain_db"], r["snr_f64_db"], r["max_abs_err"],
+                   r["ms"], r["device_ms"], r["plain_ms"], r["bound_ms"],
+                   r["bound_by"], min(r["snr_state_db"]), card))
     for i, shape in enumerate(SHARDED_SHAPES):
         kres[shape] = r = check_kernel(dev, shape, seed=40 + i)
         say(5, "iir_tiles {}x{} (a sharded chain's local block, both EQ "
@@ -2983,7 +3002,7 @@ def main(only_four_ranks: bool = False) -> None:
         tiles_paths[f"Pipe(mesh={k}) insert_processor, each of 4 ranks "
                     "(phase 20 d)"] = v["insert_launches"]
 
-    for r in s21:  # every process of every example: 0, off the tile gate
+    for r in s21:  # every process of every example: 0, at 1 or 2 channels
         what = f"examples/torch/{r['script']} {' '.join(r['args'])} (phase 21)"
         tiles_paths[what] = sum(n for n, _ in r["launches"])
         section_paths[what] = sum(n for _, n in r["launches"])

@@ -18,7 +18,7 @@
 // carry itself (two FMAs a tile and channel) is walked in order.
 //
 //   1. product:  z = Tl v for every (tile, 8 channels) pair, one CUDA block
-//      each: grid (B/256) x (C/8). A thread owns 4 consecutive outputs of 2
+//      each: grid ceil(B/256) x (C/8). A thread owns 4 consecutive outputs of 2
 //      channels in registers and slides a window of g over them, so 4 steps
 //      of j cost three 16-byte shared loads for 32 FMAs. The sums run in
 //      ascending j, one FMA a term. The tile's last two outputs also go to
@@ -52,6 +52,15 @@
 //   finish: y = y0 + boundary'(z') with the second chain from a zero state
 //     (without refinement: y = boundary(z)), and the state after the last
 //     valid frame.
+//
+// The partial last tile: B need not be a multiple of 256. The last tile's
+// positions from B on are read as 0 and never stored. The recurrence is
+// causal, so whatever lies past B changes no output before it, and the last
+// tile's entry in the (C, T, 2) array is never read: a tile's carry walks
+// only the tiles before it. The guard is one branch, uniform over a CUDA
+// block (whole_tile()), so the whole tiles run the code they ran before.
+// float4 stores need rows that start 16-byte aligned (B % 4 == 0); otherwise
+// every tile takes the guarded path and stores scalars.
 //
 // Launch contract: every kernel runs on the given stream, nothing is
 // allocated here (outputs and scratch come from the caller), and each entry
@@ -112,6 +121,17 @@ __device__ void fill_sequences(Sequences& seq, float a1f, float a2f, int lane) {
     w0 = next;
   }
   if (lane == 31) seq.alpha[kQ - 1] = __double2float_rn(w0);  // g[256]
+}
+
+// Tiles of a B-frame row, the last one possibly partial.
+__host__ __device__ __forceinline__ int num_tiles(int B) {
+  return (B + kQ - 1) / kQ;
+}
+
+// Whether tile t lies wholly inside the row and the row starts 16-byte
+// aligned: the same answer for every thread of a CUDA block.
+__device__ __forceinline__ bool whole_tile(int t, int B) {
+  return t < B / kQ && B % 4 == 0;
 }
 
 // A tile position's output from its zero-state product and the tile's
@@ -183,15 +203,31 @@ __device__ __forceinline__ void tile_product(const float (*vt)[kQ],
 }
 
 // Write the owner's outputs to z (C, B) and the tile's last two to zl (C, T, 2).
+// kTail: only the outputs before B, as one float4 where the row is aligned.
+template <bool kTail>
 __device__ __forceinline__ void store_product(const float (&out)[2][4],
                                               const Owner& o, float* z,
                                               float* zl, int c0, int t, int B) {
-  const int T = B / kQ;
+  const int T = num_tiles(B);
+  const int n0 = t * kQ + o.i0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const size_t c = c0 + o.ca + h;
-    *reinterpret_cast<float4*>(&z[c * B + static_cast<size_t>(t) * kQ + o.i0]) =
-        make_float4(out[h][0], out[h][1], out[h][2], out[h][3]);
+    float* row = &z[c * B];
+    if (!kTail) {
+      *reinterpret_cast<float4*>(&row[n0]) =
+          make_float4(out[h][0], out[h][1], out[h][2], out[h][3]);
+    } else if (B % 4 == 0) {
+      if (n0 < B) {
+        *reinterpret_cast<float4*>(&row[n0]) =
+            make_float4(out[h][0], out[h][1], out[h][2], out[h][3]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (n0 + r < B) row[n0 + r] = out[h][r];
+      }
+    }
     if (o.i0 == kQ - 4) {
       zl[(c * T + t) * 2 + 0] = out[h][3];
       zl[(c * T + t) * 2 + 1] = out[h][2];
@@ -297,16 +333,48 @@ biquad_product_kernel(const float* __restrict__ in, const float* __restrict__ x_
                 : in[static_cast<size_t>(c0 + c) * B + k - 2];
     }
   } else {
+    const int n = t * kQ + tid;
+    if (whole_tile(t, B)) {
 #pragma unroll
-    for (int c = 0; c < kCB; ++c) {
-      vt[c][tid] = in[static_cast<size_t>(c0 + c) * B + t * kQ + tid];
+      for (int c = 0; c < kCB; ++c) {
+        vt[c][tid] = in[static_cast<size_t>(c0 + c) * B + n];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCB; ++c) {
+        vt[c][tid] = n < B ? in[static_cast<size_t>(c0 + c) * B + n] : 0.0f;
+      }
     }
     __syncthreads();
   }
   const Owner o = owner_of(tid);
   float out[2][4];
   tile_product(vt, seq.gz, o, out);
-  store_product(out, o, z, zl, c0, t, B);
+  if (whole_tile(t, B)) {
+    store_product<false>(out, o, z, zl, c0, t, B);
+  } else {
+    store_product<true>(out, o, z, zl, c0, t, B);
+  }
+}
+
+// The refine pass's y0 = boundary(z), written over z in y and into
+// xs[c][2 ..] for the defect; kTail: z past B reads 0 and y0 there is kept
+// out of y.
+template <bool kTail>
+__device__ __forceinline__ void refine_boundary(float (*xs)[kQ + 2], float* y,
+                                                const float (*carry)[2],
+                                                float al, float be, int c0,
+                                                int t, int B, int tid) {
+  const int n = t * kQ + tid;
+#pragma unroll
+  for (int c = 0; c < kCB; ++c) {
+    const size_t at = static_cast<size_t>(c0 + c) * B + n;
+    const bool in_row = !kTail || n < B;
+    const float y0 =
+        boundary(in_row ? y[at] : 0.0f, carry[c][0], al, carry[c][1], be);
+    if (in_row) y[at] = y0;
+    xs[c][tid + 2] = y0;
+  }
 }
 
 // Pass 2 of a refined section: y0 = boundary(z) in place, the float64
@@ -322,19 +390,18 @@ biquad_refine_kernel(const float* __restrict__ x, const float* __restrict__ x_ta
   __shared__ float stage[kCB][2 * kChunk];
   __shared__ float carry[kCB][2];
   const int tid = threadIdx.x, t = blockIdx.x, c0 = blockIdx.y * kCB;
-  const int T = B / kQ;
+  const int T = num_tiles(B);
   const float a1f = coefs[4], a2f = coefs[5];
   if (tid < 32) fill_sequences(seq, a1f, a2f, tid);
   load_fir_tile(vt, xs, x, x_tail, coefs, frames, c0, t, B, tid);
   tile_carry(carry, stage, seq, s, zl, c0, t, T, tid);
 
   const float al = seq.alpha[tid], be = seq.beta[tid];
-#pragma unroll
-  for (int c = 0; c < kCB; ++c) {
-    const size_t at = static_cast<size_t>(c0 + c) * B + t * kQ + tid;
-    const float y0 = boundary(y[at], carry[c][0], al, carry[c][1], be);
-    y[at] = y0;
-    xs[c][tid + 2] = y0;
+  const bool whole = whole_tile(t, B);
+  if (whole) {
+    refine_boundary<false>(xs, y, carry, al, be, c0, t, B, tid);
+  } else {
+    refine_boundary<true>(xs, y, carry, al, be, c0, t, B, tid);
   }
   if (tid < 2 * kCB) {
     // xs[c][0], xs[c][1] = y0[-2], y0[-1] = carry[c][1], carry[c][0]
@@ -355,7 +422,34 @@ biquad_refine_kernel(const float* __restrict__ x, const float* __restrict__ x_ta
   const Owner o = owner_of(tid);
   float out[2][4];
   tile_product(vt, seq.gz, o, out);
-  store_product(out, o, zr, zlr, c0, t, B);
+  if (whole) {
+    store_product<false>(out, o, zr, zlr, c0, t, B);
+  } else {
+    store_product<true>(out, o, zr, zlr, c0, t, B);
+  }
+}
+
+// The last pass's outputs of one tile (see biquad_finish_kernel); kTail:
+// the positions from B on are left alone.
+template <bool kRefine, bool kState, bool kTail>
+__device__ __forceinline__ void finish_tile(const float* zsrc,
+                                            const float (*carry)[2], float al,
+                                            float be, int frames, float* y,
+                                            float* new_s, int c0, int t, int B,
+                                            int tid) {
+  const int n = t * kQ + tid;
+  if (kTail && n >= B) return;
+#pragma unroll
+  for (int c = 0; c < kCB; ++c) {
+    const size_t at = static_cast<size_t>(c0 + c) * B + n;
+    float out = boundary(zsrc[at], carry[c][0], al, carry[c][1], be);
+    if (kRefine) out = __fadd_rn(y[at], out);
+    y[at] = out;
+    if (kState) {
+      if (n == frames - 1) new_s[(c0 + c) * 2] = out;
+      if (n == frames - 2) new_s[(c0 + c) * 2 + 1] = out;
+    }
+  }
 }
 
 // The last pass. y = boundary(zsrc) along the chain from s over zl; with
@@ -375,19 +469,15 @@ biquad_finish_kernel(const float* zsrc, const float* __restrict__ zl,
   const int tid = threadIdx.x, t = blockIdx.x, c0 = blockIdx.y * kCB;
   if (tid < 32) fill_sequences(seq, *a1p, *a2p, tid);
   __syncthreads();
-  tile_carry(carry, stage, seq, kRefine ? nullptr : s, zl, c0, t, B / kQ, tid);
+  tile_carry(carry, stage, seq, kRefine ? nullptr : s, zl, c0, t, num_tiles(B),
+             tid);
   const float al = seq.alpha[tid], be = seq.beta[tid];
-  const int n = t * kQ + tid;
-#pragma unroll
-  for (int c = 0; c < kCB; ++c) {
-    const size_t at = static_cast<size_t>(c0 + c) * B + n;
-    float out = boundary(zsrc[at], carry[c][0], al, carry[c][1], be);
-    if (kRefine) out = __fadd_rn(y[at], out);
-    y[at] = out;
-    if (kState) {
-      if (n == frames - 1) new_s[(c0 + c) * 2] = out;
-      if (n == frames - 2) new_s[(c0 + c) * 2 + 1] = out;
-    }
+  if (whole_tile(t, B)) {
+    finish_tile<kRefine, kState, false>(zsrc, carry, al, be, frames, y, new_s,
+                                        c0, t, B, tid);
+  } else {
+    finish_tile<kRefine, kState, true>(zsrc, carry, al, be, frames, y, new_s,
+                                       c0, t, B, tid);
   }
   if (kState && t == 0 && tid < kCB && frames < 2) {
     // y_hist[frames + 1] and y_hist[frames] still lie in the carried state
@@ -398,18 +488,18 @@ biquad_finish_kernel(const float* zsrc, const float* __restrict__ zl,
 }
 
 bool bad_shape(int C, int B) {
-  return C <= 0 || B <= 0 || C % kCB != 0 || B % kQ != 0 || C / kCB > 65535;
+  return C <= 0 || B <= 0 || C % kCB != 0 || C / kCB > 65535;
 }
 
 }  // namespace
 
 // y (C, B) = the recurrence over v from the state s (C, 2). zl: scratch of
-// C * (B / 256) * 2 floats. y must not alias v.
+// C * ceil(B / 256) * 2 floats. y must not alias v.
 extern "C" int pipe_iir_tiles(const float* v, const float* s, const float* a1,
                               const float* a2, float* y, float* zl, int C,
                               int B, void* stream) {
   if (bad_shape(C, B)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B / kQ, C / kCB);
+  const dim3 grid(num_tiles(B), C / kCB);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   biquad_product_kernel<false><<<grid, kQ, 0, st>>>(v, nullptr, nullptr, a1, a2, 0, y,
                                              zl, nullptr, B);
@@ -421,7 +511,7 @@ extern "C" int pipe_iir_tiles(const float* v, const float* s, const float* a1,
 // One biquad section over x (C, B), valid to `frames`, from the state
 // (x_tail, s), both (C, 2); coefs = [b0, b1, b2, 1, a1, a2] on the card.
 // Writes y (C, B), new_x_tail and new_s (C, 2). scratch: C * B +
-// 4 * C * (B / 256) floats. No output may alias an input.
+// 4 * C * ceil(B / 256) floats. No output may alias an input.
 extern "C" int pipe_biquad_section(const float* x, const float* x_tail,
                                    const float* s, const float* coefs,
                                    int frames, int refine, float* y,
@@ -431,9 +521,9 @@ extern "C" int pipe_biquad_section(const float* x, const float* x_tail,
   if (bad_shape(C, B) || frames < 0 || frames > B) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(B / kQ, C / kCB);
+  const dim3 grid(num_tiles(B), C / kCB);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n_last = static_cast<size_t>(C) * (B / kQ) * 2;
+  const size_t n_last = static_cast<size_t>(C) * num_tiles(B) * 2;
   float* zl = scratch;
   float* zlr = scratch + n_last;
   float* zr = scratch + 2 * n_last;

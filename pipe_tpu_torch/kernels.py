@@ -6,6 +6,13 @@ interface, under ``build/pipe_tpu_torch/`` beside the package (cached by a
 hash of the sources and flags), and bound with ``ctypes``. A missing
 ``nvcc`` or a failed build raises: there is no fallback.
 
+The two entry points take different shapes. :func:`biquad_section` takes
+any (C, B) block with ``C % 8 == 0`` and ``B >= 1`` (:func:`section_gate`):
+the last 256-frame tile may be partial, and the kernels read it as zeros
+past B and store nothing there. :func:`iir_tiles`, the counterpart of the
+TPU's Pallas call, keeps that call's gate (:func:`tile_gate`: also ``B %
+256 == 0`` and ``B >= 2048``), which the sharded ``BiquadStage`` reads.
+
 Each wrapper checks its inputs and raises on what the kernel does not take,
 allocates outputs and scratch with ``torch.empty``, enqueues its kernels on
 ``torch.cuda.current_stream()`` with one call into the library, raises if
@@ -39,6 +46,10 @@ NVCC_FLAGS = (
 
 IIR_TILE = 256  # tile length Q of the biquad kernel
 IIR_CHANNELS_PER_BLOCK = 8
+# the JAX package's _TILE_MIN_B (pipe_tpu/ops/biquad.py:136), a TPU choice:
+# there XLA fuses the associative scan into one program while the Pallas
+# kernel walks its tiles as a sequential grid. Nothing in the CUDA kernels
+# needs it; only iir_tiles keeps it, as the Pallas call's counterpart.
 IIR_MIN_B = 2048
 
 KERNELS = ("iir_tiles", "biquad_section")  # the wrappers below
@@ -128,16 +139,34 @@ def _check_launch(lib, err: int, name: str) -> None:
 
 
 def tile_gate(C: int, B: int) -> bool:
-    """Whether a (C, B) block is one the tile kernels take."""
+    """Whether a (C, B) block is one :func:`iir_tiles` takes."""
     return C % IIR_CHANNELS_PER_BLOCK == 0 and B % IIR_TILE == 0 and B >= IIR_MIN_B
 
 
-def _check_block(name: str, x: torch.Tensor, state, params) -> tuple:
-    """``x`` must be a float32 contiguous CUDA (C, B) block on the tile
-    gate, every ``(label, tensor)`` of ``state`` a (C, 2) tensor and every
-    ``(label, tensor, shape)`` of ``params`` of that many elements, all
-    float32, contiguous and on the same card. Returns (C, B); raises
-    ``ValueError`` naming the first thing the kernel does not take."""
+def section_gate(C: int, B: int) -> bool:
+    """Whether a (C, B) block is one :func:`biquad_section` takes: whole
+    8-channel groups and at least one frame, the last tile possibly
+    partial."""
+    return C > 0 and C % IIR_CHANNELS_PER_BLOCK == 0 and B >= 1
+
+
+_TILE_RULE = "C must be a multiple of 8, B a multiple of 256 and >= 2048"
+_SECTION_RULE = "C must be a positive multiple of 8 and B >= 1"
+
+
+def _tiles(B: int) -> int:
+    """256-frame tiles of a B-frame row, the last one possibly partial."""
+    return -(-B // IIR_TILE)
+
+
+def _check_block(name: str, x: torch.Tensor, state, params, gate,
+                 rule: str) -> tuple:
+    """``x`` must be a float32 contiguous CUDA (C, B) block that passes
+    ``gate`` (``rule`` says how), every ``(label, tensor)`` of ``state`` a
+    (C, 2) tensor and every ``(label, tensor, shape)`` of ``params`` of that
+    many elements, all float32, contiguous and on the same card. Returns
+    (C, B); raises ``ValueError`` naming the first thing the kernel does not
+    take."""
     C, B = x.shape if x.ndim == 2 else (0, 0)
     dev = x.device
 
@@ -145,7 +174,7 @@ def _check_block(name: str, x: torch.Tensor, state, params) -> tuple:
         return (t.dtype is torch.float32 and t.device == dev and t.is_contiguous()
                 and (t.shape == shape if exact else t.numel() == math.prod(shape)))
 
-    if (x.is_cuda and tile_gate(C, B) and ok(x, (C, B), True)
+    if (x.is_cuda and gate(C, B) and ok(x, (C, B), True)
             and all(ok(t, (C, 2), True) for _, t in state)
             and all(ok(t, shape, False) for _, t, shape in params)):
         return C, B
@@ -153,10 +182,8 @@ def _check_block(name: str, x: torch.Tensor, state, params) -> tuple:
         raise ValueError(f"{name}: the block must be a CUDA tensor, got {dev}")
     if x.ndim != 2:
         raise ValueError(f"{name}: the block must be (C, B), got {tuple(x.shape)}")
-    if not tile_gate(C, B):
-        raise ValueError(
-            f"{name}: block ({C}, {B}) is off the tile gate: C must be a "
-            "multiple of 8, B a multiple of 256 and >= 2048")
+    if not gate(C, B):
+        raise ValueError(f"{name}: block ({C}, {B}) is off its gate: {rule}")
     for label, t, shape, exact in (
             ("the block", x, (C, B), True),
             *((label, t, (C, 2), True) for label, t in state),
@@ -199,11 +226,12 @@ def iir_tiles(v: torch.Tensor, s: torch.Tensor, a1: torch.Tensor,
     - a1 y[n-1] - a2 y[n-2]`` over ``v`` (C, B) from the carried state ``s``
     (C, 2) = (y[-1], y[-2]). ``a1``/``a2`` are 0-d tensors on the same card
     (read by the kernel, so no host sync). Needs float32 contiguous CUDA
-    tensors, ``C % 8 == 0``, ``B % 256 == 0`` and ``B >= 2048``."""
+    tensors, ``C % 8 == 0``, ``B % 256 == 0`` and ``B >= 2048``
+    (:func:`tile_gate`)."""
     C, B = _check_block("iir_tiles", v, (("s", s),),
-                        (("a1", a1, ()), ("a2", a2, ())))
+                        (("a1", a1, ()), ("a2", a2, ())), tile_gate, _TILE_RULE)
     y = torch.empty_like(v)
-    zl = torch.empty(2 * C * (B // IIR_TILE), dtype=torch.float32, device=v.device)
+    zl = torch.empty(2 * C * _tiles(B), dtype=torch.float32, device=v.device)
     _launch("iir_tiles", v.device, _library().pipe_iir_tiles,
             v.data_ptr(), s.data_ptr(), a1.data_ptr(), a2.data_ptr(),
             y.data_ptr(), zl.data_ptr(), C, B)
@@ -218,16 +246,18 @@ def biquad_section(x: torch.Tensor, frames: int, x_tail: torch.Tensor,
     (C, B) is valid to the host int ``frames``; ``x_tail`` and ``s`` (C, 2)
     are the carried state, ``coefs`` the live (6,) row [b0, b1, b2, 1, a1,
     a2] on the card (read by the kernels, no host sync). Returns ``(y,
-    new_x_tail, new_s)``. Same tensor requirements as :func:`iir_tiles`."""
+    new_x_tail, new_s)``. Needs float32 contiguous CUDA tensors, ``C % 8 ==
+    0`` and ``B >= 1`` (:func:`section_gate`); B need not fill whole
+    tiles."""
     C, B = _check_block("biquad_section", x, (("x_tail", x_tail), ("s", s)),
-                        (("coefs", coefs, (6,)),))
+                        (("coefs", coefs, (6,)),), section_gate, _SECTION_RULE)
     frames = int(frames)
     if not 0 <= frames <= B:
         raise ValueError(f"biquad_section: frames={frames} outside [0, {B}]")
     y = torch.empty_like(x)
     new_x_tail, new_s = torch.empty(
         (2, C, 2), dtype=torch.float32, device=x.device).unbind(0)
-    n_scratch = 4 * C * (B // IIR_TILE) + (C * B if refine else 0)
+    n_scratch = 4 * C * _tiles(B) + (C * B if refine else 0)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     _launch("biquad_section", x.device, _library().pipe_biquad_section,
             x.data_ptr(), x_tail.data_ptr(), s.data_ptr(), coefs.data_ptr(),

@@ -2,22 +2,25 @@
 ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``, with one refinement pass.
 
 The PyTorch counterpart of :mod:`pipe_tpu.ops.biquad`'s default float32
-path. A section's block on the card that passes the tile gate
-(``B % 256 == 0``, ``B >= 2048``, ``C % 8 == 0``) is one call of the
-hand-written CUDA kernels (``kernels.biquad_section``: the FIR part, the
-recurrence, the refinement pass and the state update together); every
-other block takes the same steps as eager ops
-(:func:`_biquad_section_ref`). :func:`_iir_apply` picks how the recurrence
-alone runs:
+path. A section's block on the card whose channel count is a multiple of 8
+(``kernels.section_gate``: any ``B >= 1``, the last 256-frame tile possibly
+partial) is one call of the hand-written CUDA kernels
+(``kernels.biquad_section``: the FIR part, the recurrence, the refinement
+pass and the state update together); every other block takes the same
+steps as eager ops (:func:`_biquad_section_ref`, which runs the recurrence
+as ``'tiles'`` on the same shapes and as ``'assoc'`` on the others).
+:func:`_iir_apply` picks how the recurrence alone runs:
 
 - ``'kernel'``: the hand-written CUDA kernel (``kernels.iir_tiles``, the
   port of the TPU's Pallas tile kernel). Taken for every CUDA tensor that
-  passes the tile gate.
+  passes the tile gate (``kernels.tile_gate``: ``B % 256 == 0``,
+  ``B >= 2048``, ``C % 8 == 0``, the JAX package's gate).
 - ``'tiles'``: its plain PyTorch version (:func:`_iir_tiles_ref`) in the
   kernel's three passes over 256-sample tiles: every tile's product with
   the lower-triangular Toeplitz matrix of the impulse response at once,
   the (C, 2) carries from tile to tile, and the rank-2 boundary term added
-  to all tiles. Taken for CPU tensors that pass the gate.
+  to all tiles; a partial last tile is zero-padded, as the kernels read it.
+  Taken for CPU tensors that pass the tile gate.
 - ``'assoc'``: the affine recurrence over 2-vectors,
   ``s[n] = A s[n-1] + u[n]``, evaluated by prefix doubling over
   ``(A, u)`` pairs in float64 (see :func:`_iir_assoc`). Taken for blocks
@@ -60,25 +63,34 @@ def _iir_sequences(a1, a2, Q: int):
     ``Tl[i, j] = g[i-j]``. Near DC these responses grow to ~100 from
     terms that cancel, and a float32 recurrence costs the streamed output
     ~9 dB on a 20 Hz section at 44.1 kHz.
+
+    The recurrence runs on Python floats (IEEE float64, each product and
+    difference rounded as a float64 tensor op rounds it): a few hundred
+    tensor ops on scalars would cost milliseconds a call.
     """
-    a1, a2 = a1.double(), a2.double()
-    one, zero = torch.ones_like(a1), torch.zeros_like(a1)
-    y1 = torch.stack([one, -a1, -a2])  # values at i = 0
-    y2 = torch.stack([zero, one, zero])  # values at i = -1
-    seqs = [y1]
-    for _ in range(Q - 1):
-        y = -a1 * y1 - a2 * y2
-        y1, y2 = y, y1
-        seqs.append(y)
-    seqs = torch.stack(seqs).float()  # (Q, 3)
-    return seqs[:, 0], seqs[:, 1], seqs[:, 2]
+    device = a1.device
+    a1, a2 = float(a1), float(a2)
+    seqs = []
+    # values at i = 0 and i = -1 of g, alpha and beta
+    for y1, y2 in ((1.0, 0.0), (-a1, 1.0), (-a2, 0.0)):
+        seq = [y1]
+        for _ in range(Q - 1):
+            y1, y2 = -a1 * y1 - a2 * y2, y1
+            seq.append(y1)
+        seqs.append(seq)
+    seqs = torch.tensor(seqs, dtype=torch.float64, device=device).float()  # (3, Q)
+    return seqs[0], seqs[1], seqs[2]
 
 
 def _iir_tiles_ref(v, s, TlT, ab, Q: int):
     """Plain version of the tile kernel, in its three passes; ``s`` and
-    every carry are (C, 2) = (y[-1], y[-2]) of a tile."""
+    every carry are (C, 2) = (y[-1], y[-2]) of a tile. A partial last tile
+    is zero-padded: the recurrence is causal, so the zeros past B change no
+    output before it."""
     C, B = v.shape
-    T = B // Q
+    T = -(-B // Q)
+    if T * Q != B:
+        v = torch.nn.functional.pad(v, (0, T * Q - B))
     # 1. zero-state products of all tiles at once, in float64 and rounded
     # once: a float32 product on the card follows the precision knob of
     # pipe_tpu_torch.config (TF32 under 'default' and 'high'), and the
@@ -93,7 +105,8 @@ def _iir_tiles_ref(v, s, TlT, ab, Q: int):
         carry = last.flip(1)
     c = torch.stack(carries, dim=1)  # (C, T, 2)
     # 3. the boundary term of every tile
-    return (z + c[:, :, 0:1] * ab[0] + c[:, :, 1:2] * ab[1]).reshape(C, B)
+    y = (z + c[:, :, 0:1] * ab[0] + c[:, :, 1:2] * ab[1]).reshape(C, T * Q)
+    return y[:, :B].contiguous()
 
 
 def _iir_assoc(v, s, a1, a2):
@@ -143,7 +156,7 @@ def _iir_apply(v, s, a1, a2, force: str | None = None):
 
     Blocks that pass the tile gate take the CUDA kernel on the card and its
     plain version on the CPU; other blocks take the prefix-doubling path.
-    ``force`` pins a path: 'assoc' | 'tiles' | 'kernel'.
+    ``force`` pins a path: 'assoc' | 'tiles' (any B) | 'kernel'.
     """
     Q = _TILE_Q
     path = force
@@ -312,11 +325,12 @@ def _biquad_section_ref(state, x, frames: int, coefs, refine: bool = True):
     """One block through one biquad section as eager ops: the plain version
     of ``kernels.biquad_section``. Same contract as
     :func:`biquad_section_block`. The recurrence takes ``'tiles'`` for a
-    block on the tile gate and ``'assoc'`` otherwise, never the kernel."""
+    block the section kernel takes (``kernels.section_gate``) and
+    ``'assoc'`` otherwise, never the kernel."""
     b0, b1, b2 = coefs[0], coefs[1], coefs[2]
     a1, a2 = coefs[4], coefs[5]
     xm = zero_past(x, frames)
-    path = "tiles" if kernels.tile_gate(*x.shape) else "assoc"
+    path = "tiles" if kernels.section_gate(*x.shape) else "assoc"
 
     # FIR part v[n] = b0 x[n] + b1 x[n-1] + b2 x[n-2] with carried tail
     buf = torch.cat([state["x_tail"], xm], dim=1)  # (C, B+2)
@@ -342,11 +356,12 @@ def biquad_section_block(state, x, frames: int, coefs, refine: bool = True):
     (y[n-1], y[n-2]); ``x``: (C, B) valid to ``frames``; ``coefs``: (6,)
     [b0, b1, b2, 1, a1, a2]. Returns ``(new_state, y)``.
 
-    A block on the card that passes the tile gate is one call of the CUDA
-    kernels (or raises: there is no fallback); every other block runs
+    A block on the card whose channel count is a multiple of 8
+    (``kernels.section_gate``, any number of frames) is one call of the
+    CUDA kernels (or raises: there is no fallback); every other block runs
     :func:`_biquad_section_ref`.
     """
-    if x.is_cuda and kernels.tile_gate(*x.shape):
+    if x.is_cuda and kernels.section_gate(*x.shape):
         y, new_x_tail, new_s = kernels.biquad_section(
             x.contiguous(), frames, state["x_tail"].contiguous(),
             state["s"].contiguous(), coefs.contiguous(), refine)

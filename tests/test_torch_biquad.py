@@ -208,14 +208,17 @@ def _stream_blocks(seed, C, B, n_blocks, frames_last):
     return blocks, frames
 
 
+# one jitted cascade step for every test: jit compiles it once per shape
+_jax_cascade_step = jax.jit(lambda st, x, f: jbq.biquad_block(
+    st, x, f, jnp.asarray(SOS.astype(np.float32))))
+
+
 def _jax_cascade(blocks, frames, state=None):
-    sos = jnp.asarray(SOS.astype(np.float32))
     if state is None:
         state = jbq.biquad_init_state(blocks[0].shape[0], SOS.shape[0])
-    step = jax.jit(lambda st, x, f: jbq.biquad_block(st, x, f, sos))
     outs = []
     for x, f in zip(blocks, frames):
-        state, y = step(state, jnp.asarray(x), jnp.int32(f))
+        state, y = _jax_cascade_step(state, jnp.asarray(x), jnp.int32(f))
         outs.append(np.asarray(y)[:, :f])
     return state, outs
 
@@ -231,9 +234,11 @@ def _port_cascade(blocks, frames, state=None):
     return state, outs
 
 
-@pytest.mark.parametrize("B", [512, 2048])  # assoc and tiled paths
-def test_biquad_block_chained_matches_jax(B):
-    blocks, frames = _stream_blocks(3, 8, B, 4, B - 37)
+@pytest.mark.parametrize("C, B", [  # 'tiles' (8 channels), 'assoc' (2)
+    pytest.param(8, 512, id="512"), pytest.param(8, 2048, id="2048"),
+    pytest.param(2, 512, id="2-512")])
+def test_biquad_block_chained_matches_jax(C, B):
+    blocks, frames = _stream_blocks(3, C, B, 4, B - 37)
     jstate, jout = _jax_cascade(blocks, frames)
     tstate, tout = _port_cascade(blocks, frames)
     for j, t in zip(jout, tout):
@@ -251,6 +256,43 @@ def test_biquad_block_chained_matches_jax(B):
             assert snr_db(a[k], b[k]) > 100
 
 
+def _partial_tile_cases():
+    """(C, B, frames of the last block): blocks whose last 256-frame tile
+    is partial or that are shorter than one tile, each valid to 0, 1, 2,
+    B - 37 and B frames where those exist."""
+    for C, B in ((8, 640), (64, 640), (8, 1000), (8, 100), (8, 1), (16, 2304)):
+        for f in sorted({0, 1, 2, B - 37, B}):
+            if 0 <= f <= B:
+                yield pytest.param(C, B, f, id=f"{C}x{B}-f{f}")
+
+
+@pytest.mark.parametrize("C, B, frames_last", _partial_tile_cases())
+def test_biquad_block_partial_tiles_match_jax(monkeypatch, C, B, frames_last):
+    """The plain version of the section kernel on blocks that fill no whole
+    number of tiles: the recurrence runs as ``'tiles'`` with the last tile
+    zero-padded (2 sections x 2 passes x 4 blocks), streamed over 4 blocks
+    against ``pipe_tpu``'s cascade with the bars of
+    ``test_biquad_block_chained_matches_jax``: >= 110 dB on the streams,
+    >= 100 dB on the carried state."""
+    tiled = []
+    ref_tiles = tbq._iir_tiles_ref
+    monkeypatch.setattr(tbq, "_iir_tiles_ref",
+                        lambda *a: tiled.append(a[0].shape) or ref_tiles(*a))
+    blocks, frames = _stream_blocks(13, C, B, 4, frames_last)
+    jstate, jout = _jax_cascade(blocks, frames)
+    tstate, tout = _port_cascade(blocks, frames)
+    assert tiled == [(C, B)] * 16
+    for j, t in zip(jout, tout):
+        assert t.shape == j.shape
+    assert snr_db(np.concatenate(jout, 1), np.concatenate(tout, 1)) >= 110
+    js = jax.tree.map(np.asarray, jstate)
+    for a, b in zip(js, convert.tree_to_numpy(tstate)):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].shape == b[k].shape
+            assert snr_db(a[k], b[k]) >= 100
+
+
 def test_jax_state_continued_by_port():
     """Two blocks through JAX, the state carried across with
     ``convert.tree_from_numpy``, two more through the port — against JAX
@@ -263,14 +305,15 @@ def test_jax_state_continued_by_port():
     assert snr_db(np.concatenate(full[2:], 1), np.concatenate(rest, 1)) > 110
 
 
-@pytest.mark.parametrize("C, B", [(2, 512), (8, 2048)])  # assoc, tiles
+@pytest.mark.parametrize("C, B", [(2, 512), (8, 2048), (8, 640)])  # assoc, tiles
 def test_near_dc_section_streams_no_worse_than_jax(C, B):
     """A 20 Hz q=0.5 section at 44.1 kHz (DC gain of 1/A near 1e5) over 16
     blocks on the default float32 path, against float64. The port forms
     the prefix products and the tile responses in float64 (see
     ``_iir_assoc`` and ``_iir_sequences``); measured: assoc 65.4 dB (JAX
-    44.3 dB), tiles 65.0 dB (JAX 63.7 dB). With both in float32 the port
-    read 8.5 dB (its block map diverged) and 55.6 dB."""
+    44.3 dB), tiles 65.0 dB (JAX 63.7 dB), tiles with a partial last tile
+    at 640 frames 64.8 dB (JAX's assoc 40.1 dB). With both in float32 the
+    port read 8.5 dB (its block map diverged) and 55.6 dB."""
     sos = jbq.design_peaking_eq(44100, 20.0, 0.5, 6.0)[None]
     sos32 = (sos / sos[:, 3:4]).astype(np.float32)
     blocks, frames = _stream_blocks(0, C, B, 16, B)

@@ -66,11 +66,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("shape", [(8, 1000), (12, 2048), (8, 1024)],
                          ids=["B%256", "C%8", "B<2048"])
 def test_kernel_wrapper_refuses_shapes_off_the_gate(cuda, shape):
-    with pytest.raises(ValueError):
+    """``iir_tiles`` keeps the tile gate; ``biquad_section`` refuses only a
+    channel count that is not a multiple of 8, and takes the other two
+    blocks (a partial last tile, fewer than 2048 frames)."""
+    with pytest.raises(ValueError, match="B a multiple of 256 and >= 2048"):
         kernels.iir_tiles(*_recurrence_inputs(cuda, *shape))
     x, x_tail, s, coefs = _section_inputs(cuda, *shape)
-    with pytest.raises(ValueError):
-        kernels.biquad_section(x, shape[1], x_tail, s, coefs)
+    if shape[0] % 8:
+        with pytest.raises(ValueError, match="C must be a positive multiple of 8"):
+            kernels.biquad_section(x, shape[1], x_tail, s, coefs)
+    else:
+        y, _, _ = kernels.biquad_section(x, shape[1], x_tail, s, coefs)
+        assert y.shape == shape
 
 
 @pytest.mark.gpu
@@ -85,6 +92,8 @@ def test_section_wrapper_refuses_bad_arguments(cuda):
         kernels.biquad_section(x, 2048, x_tail, s, coefs.double())
     with pytest.raises(ValueError, match="contiguous"):
         kernels.biquad_section(x.T.contiguous().T, 2048, x_tail, s, coefs)
+    with pytest.raises(ValueError, match="B >= 1"):
+        kernels.biquad_section(x[:, :0].contiguous(), 0, x_tail, s, coefs)
 
 
 @pytest.mark.gpu
@@ -149,6 +158,117 @@ def test_section_kernel_matches_plain(cuda, shape, refine):
             assert torch.equal(st["s"], y_hist[:, frames: frames + 2].flip(1))
             assert snr_db(ref_st["s"].cpu().numpy(), st["s"].cpu().numpy()) >= 110
             assert all(v.is_contiguous() and v.shape == (C, 2) for v in st.values())
+
+
+def _frame_edges(B):
+    """Valid lengths at the edges of a block: 0, 1, 2, B - 37 and B."""
+    return sorted(f for f in {0, 1, 2, B - 37, B} if 0 <= f <= B)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine", [True, False], ids=["refine", "plain"])
+@pytest.mark.parametrize("shape", [(64, 640), (8, 1), (8, 37), (8, 255), (8, 257),
+                                   (16, 1000), (64, 10240)], ids=str)
+def test_section_kernel_partial_tiles_match_plain(cuda, shape, refine):
+    """``biquad_section`` on blocks with a partial last tile (or less than
+    one tile; B % 4 != 0 takes the scalar stores) and on whole tiles, both
+    EQ sections, valid to each of :func:`_frame_edges`: exactly one launch
+    a call, the output >= 110 dB from the plain version's, the new
+    ``x_tail`` exactly, the new ``s`` exactly the kernel's own last two
+    valid outputs and >= 110 dB from the plain version's."""
+    C, B = shape
+    rows = (ops.design_peaking_eq(48000, 1000, 1.0, 3.0),
+            ops.design_highshelf(48000, 8000, -2.0))
+    for row in rows:
+        x, x_tail, s, coefs = _section_inputs(cuda, C, B, seed=B, row=row)
+        for frames in _frame_edges(B):
+            before = kernels.launch_counts()["biquad_section"]
+            st, y = biquad_section_block({"x_tail": x_tail, "s": s}, x, frames,
+                                         coefs, refine=refine)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["biquad_section"] == before + 1
+            ref_st, ref = _biquad_section_ref({"x_tail": x_tail, "s": s}, x,
+                                              frames, coefs, refine=refine)
+            assert y.shape == ref.shape == (C, B) and y.is_contiguous()
+            assert snr_db(ref.cpu().numpy(), y.cpu().numpy()) >= 110, (row, frames)
+            assert torch.equal(st["x_tail"], ref_st["x_tail"])
+            y_hist = torch.cat([s.flip(1), y], dim=1)
+            assert torch.equal(st["s"], y_hist[:, frames: frames + 2].flip(1))
+            if not torch.equal(st["s"], ref_st["s"]):
+                assert snr_db(ref_st["s"].cpu().numpy(), st["s"].cpu().numpy()) >= 110
+
+
+def _direct_form_f64(x, sos_per_block, B):
+    """A cascade in float64, sample by sample, with the port's state (the
+    last two inputs and outputs of each section) carried across blocks and
+    each block's rows in force for that block."""
+    y = x.astype(np.float64)
+    for k in range(sos_per_block[0].shape[0]):
+        xs = np.zeros((x.shape[0], 2))
+        ys = np.zeros((x.shape[0], 2))
+        out = np.empty_like(y)
+        for n in range(y.shape[1]):
+            b0, b1, b2, _, a1, a2 = sos_per_block[n // B][k].astype(np.float64)
+            v = b0 * y[:, n] + b1 * xs[:, 0] + b2 * xs[:, 1]
+            out[:, n] = v - a1 * ys[:, 0] - a2 * ys[:, 1]
+            xs = np.stack([y[:, n], xs[:, 0]], 1)
+            ys = np.stack([out[:, n], ys[:, 0]], 1)
+        y = out
+    return y
+
+
+@pytest.mark.gpu
+def test_partial_tile_stream_with_retune_at_a_block_boundary(cuda):
+    """16 blocks of (64, 640) through the two-section cascade on the card,
+    the rows retuned from block 8 on: 2 ``biquad_section`` launches a block,
+    >= 110 dB against the plain version on the CPU and >= 100 dB against the
+    cascade in float64 with the same retune."""
+    C, B, n = 64, 640, 16
+    sos_a = np.stack([ops.design_peaking_eq(48000, 1000, 1.0, 3.0),
+                      ops.design_highshelf(48000, 8000, -2.0)]).astype(np.float32)
+    sos_b = np.stack([ops.design_peaking_eq(48000, 500, 1.5, -6.0),
+                      ops.design_highshelf(48000, 6000, 2.0)]).astype(np.float32)
+    rows = [sos_a if k < 8 else sos_b for k in range(n)]
+    x = np.random.default_rng(15).standard_normal((C, n * B)).astype(np.float32)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        state, ys = biquad_init_state(C, 2, dev), []
+        before = kernels.launch_counts()
+        for k in range(n):
+            xb = torch.from_numpy(x[:, k * B:(k + 1) * B]).to(dev)
+            state, y = biquad_block(state, xb, B, torch.from_numpy(rows[k]).to(dev))
+            ys.append(y.cpu().numpy())
+        launched = kernels.launch_counts()["biquad_section"] - before["biquad_section"]
+        assert launched == (2 * n if dev.type == "cuda" else 0)
+        outs[dev.type] = np.concatenate(ys, 1)
+    assert snr_db(outs["cpu"], outs["cuda"]) >= 110
+    assert snr_db(_direct_form_f64(x, rows, B), outs["cuda"]) >= 100
+
+
+@pytest.mark.gpu
+def test_console64_pipe_at_588_frames_runs_the_section_kernel(cuda):
+    """The live console's chain (64 channels: FIR(255) -> 160/147 resampler
+    -> two EQ sections -> 64->2 mix) through ``Pipe`` at 588-frame blocks:
+    every EQ block is (64, 640), so each block launches ``biquad_section``
+    twice (once a section) on the line's thread and ``iir_tiles`` never, and
+    the card's output agrees with the CPU's at >= 100 dB."""
+    C, block, n = 64, 588, 24
+    x = np.random.default_rng(16).standard_normal((C, n * block - 100)).astype(np.float32)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        got = []
+        kernels.reset_counts()
+        p = pipe_tpu_torch.Pipe(block, _slice_line(x, got, C), device=dev, lookahead=1)
+        p.start()
+        p.wait(120)
+        by_thread = kernels.launch_counts(by_thread=True)
+        if dev.type == "cuda":
+            assert by_thread == {"pipe-exec-line0": {"biquad_section": 2 * n}}
+        else:
+            assert by_thread == {}
+        outs[dev.type] = np.concatenate(got, 1)
+    assert outs["cuda"].shape == outs["cpu"].shape
+    assert snr_db(outs["cpu"], outs["cuda"]) > 100
 
 
 @pytest.mark.gpu
