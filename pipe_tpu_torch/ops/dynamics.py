@@ -331,6 +331,11 @@ class _EnvelopeDynamics:
                 return ({"env": new0, "env_lo": new_lo},
                         sig.with_data(sig.data * g))
 
+            # named for the subclass, as the other ops' steps are for
+            # theirs: the span of the step is op.<subclass>
+            step.__qualname__ = (f"{type(self).__qualname__}."
+                                 "processor.<locals>.alloc.<locals>.step")
+
             self._component = Processor(
                 output=props,
                 step=step,
