@@ -7,8 +7,11 @@ A run on the card:
    long filter from the seed on the card, designs the coefficients from the
    seed on the host, and hands the same float32 numbers to the program and
    to the reference;
-2. warms up a pipe of the same line, block and knobs (pushes included) and
-   throws it away, so that nothing is built or planned inside the window;
+2. with ``--trace 1``, runs one CPU-only profiler session
+   (:func:`portbench.trace.warm`), so that the profiler's first start, which
+   takes seconds, is set-up; warms up a pipe of the same line, block and knobs
+   (pushes included) and throws it away, so that nothing is built or planned
+   inside the window;
 3. builds the timed pipe, and from ``Pipe.start()`` drives it for
    ``--seconds`` with the cell's traffic (:mod:`portbench.load`); with
    ``--trace 1`` a thread profiles a bounded stretch of that window
@@ -115,6 +118,7 @@ class _Tracer(threading.Thread):
         self.done = threading.Event()
         self.blocks = None  # (a, b) once captured
         self.span = ()
+        self.start_s = None  # how long the profiler's start took in the window
         self.error = None
 
     def _wait_fed(self, n: int) -> bool:
@@ -130,6 +134,7 @@ class _Tracer(threading.Thread):
                 return
             on = clock()
             self.cap.start()
+            self.start_s = clock() - on
             a = self.rec.n_fed + 1
             b = a + self.plan["blocks"]
             self._wait_fed(a)
@@ -169,6 +174,10 @@ def run_one(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str
     d = mod.design(cfg, seed, draw)
     stream = load.Stream(x, B)
     phases["inputs"] = time.time() - portbench.STARTED_WALL
+    if trace:
+        # the profiler's first start in a process, paid here and not in the window
+        tracing.warm(dev)
+        phases["profiler"] = time.time() - portbench.STARTED_WALL
 
     def make(feeder, feed):
         source = lambda mctx, b: port.Source(  # noqa: E731
@@ -243,6 +252,7 @@ def run_one(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str
         "pushes": rec.pushes,
         "late_ms_max": max(drv.late_s) * 1e3 if drv.late_s else None,
         "setup_phases_s": phases,
+        "profiler": (tracer.start_s, tracer.blocks) if tracer is not None else None,
     }
 
 
@@ -397,6 +407,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, cpu: bool = Fals
         notes.append(f"portbench: blocks received in each fifth of the window {fifths}")
     if part.get("late_ms_max") is not None:
         notes.append(f"portbench: the open-loop generator ran at most {part['late_ms_max']:.3f} ms late")
+    if trace:
+        start_s, blocks = part["profiler"]
+        started = "not started" if start_s is None else f"started in {start_s!r} s"
+        traced = "none" if blocks is None else f"{blocks[0]}..{blocks[1]}"
+        notes.append(f"portbench: profiler {started} inside the window; traced blocks {traced}")
     for k, c in part["checks"].items():
         ok = "ok" if c["value"] <= c["limit"] else "FAILED"
         notes.append(f"check {k}: {c['value']!r} <= limit {c['limit']!r} {ok}")

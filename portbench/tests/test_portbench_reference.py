@@ -120,7 +120,9 @@ def test_cpu_rehearsal_prints_one_result_line(name, trace, cpu_port):
     assert last["checks"]["err"]["value"] < last["checks"]["err"]["limit"]
     tail = err.getvalue().strip().splitlines()[-len(last["checks"]):]
     assert all(t.startswith("check ") for t in tail)
-    if not trace:
+    if trace:
+        assert last["device"]["window_s"] > 0  # the stretch was captured
+    else:
         assert "setup_s" in last["metrics"]
 
 

@@ -3,12 +3,13 @@ bounded, steady stretch of the window, reduced to what the per-layer readers
 need.
 
 The profiler is started and stopped on a thread of the harness while the
-pipe runs. CUPTI records the device's kernels, copies and fills and every
-CUDA API call of the process, whatever thread made it. The profiler's CPU
-side records only the thread that started it, so the harness's own spans
-(feed, receive, push, timed on the host clock by :mod:`portbench.load`) are
-carried into the trace's clock by one marker that the starting thread
-records with the host clock around it.
+pipe runs, after :func:`warm` has paid its first start in set-up. CUPTI
+records the device's kernels, copies and fills and every CUDA API call of
+the process, whatever thread made it. The profiler's CPU side records only
+the thread that started it, so the harness's own spans (feed, receive,
+push, timed on the host clock by :mod:`portbench.load`) are carried into the
+trace's clock by one marker that the starting thread records with the host
+clock around it.
 """
 
 from __future__ import annotations
@@ -25,6 +26,32 @@ from portbench.load import clock
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 API_CATS = ("cuda_runtime", "cuda_driver")
 LAUNCH_CALLS = re.compile(r"^(cudaLaunchKernel\w*|cuLaunchKernel\w*|cudaMemcpyAsync)$")
+
+
+def warm(device) -> None:
+    """Start and stop one CPU-only profiler session around one small op on
+    ``device``, exporting nothing.
+
+    A process's first ``torch.profiler`` start imports ``torch._inductor``
+    (some 840 modules: ``prepare_trace`` asks ``hasattr(torch, "_inductor")``)
+    and brings up kineto: about 2 s on a CPU, 8 to over 20 s on an H100's
+    host, longer than the window leaves before its traced stretch. Called in
+    a traced run's set-up, it leaves the start inside the window a warm one.
+    CUPTI is left to :meth:`Capture.start`, which brings it up in a few
+    milliseconds: with a CUDA session here, torn down before the pipe is
+    built, about a third of ``strip64-render``'s captures on an H100 held no
+    kernel record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    device = torch.device(device)
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    with record_function("portbench.warm"):
+        torch.ones(8, device=device).sum()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
 
 
 class Capture:
