@@ -28,8 +28,15 @@ the card (``cuda:0``), in phases, each printing one line:
    blocks that the sharded chain of phases 15 and 16 gives it: (64,
    327680), (32, 20480) and (64, 40960); ``biquad_section`` alone at
    shapes off that gate, with a partial last tile: (64, 640) (the live
-   console's EQ block) and (16, 1000) (a length not a multiple of 4). Then
-   the recurrence streamed: 43
+   console's EQ block) and (16, 1000) (a length not a multiple of 4).
+   ``envelope_block`` (``csrc/envelope.cu``: a compressor's, limiter's or
+   noise gate's block in one launch) for strip64's gate, compressor and
+   limiter at (64, 9408) and (64, 588), from a carried state, whole and
+   2/3 valid: every output sample and the carried envelope within 1e-4
+   relative of its plain version (``ops.dynamics.envelope_block`` and the
+   gain, on the card: the plain follower's rounding over a block's decay),
+   one launch a call, timed the same way beside its bound (x read and y
+   written once). Then the recurrence streamed: 43
    blocks of (64, 10240) through ``_iir_apply`` with the state carried,
    >= 90 dB against a float64 ``lfilter``, one ``iir_tiles`` launch a
    block;
@@ -84,7 +91,9 @@ the card (``cuda:0``), in phases, each printing one line:
 12. the rest of the op kit, each op on the card against the port on the
     CPU at >= 100 dB (dB and times printed): ``Delay`` (ring and in-block
     scan regimes, with feedback), ``Compressor`` (50 ms attack),
-    ``NoiseGate``, ``SpectralGain``/``SpectralGate`` (W 1024, H 256), a
+    ``NoiseGate`` (these two launch ``envelope_block`` exactly once a
+    block, the others no kernel), ``SpectralGain``/``SpectralGate`` (W
+    1024, H 256), a
     16-bin ``Channelizer``, the AM and FM demod chains, and
     ``Biquad(precision='extended')`` on a 20 Hz kappa-floor section (also
     against float64, and timed against the default path);
@@ -190,7 +199,9 @@ the card (``cuda:0``), in phases, each printing one line:
     ``reverb_file.py`` (88,200 frames written; the card's ``out.wav`` >= 100
     dB against the same ``in.wav`` through the same line run by ``run`` with
     ``device="cpu"`` in this process), ``mastering_chain.py`` (exactly
-    88,200 frames processed), ``live_mixing_desk.py`` (lines A, B and C
+    88,200 frames processed; ``envelope_block`` launched exactly 3 x 173
+    times: gate, compressor and limiter, a 512-frame block each),
+    ``live_mixing_desk.py`` (lines A, B and C
     exactly 88,200, 88,200 and 44,100 frames), ``sharded_flagship.py`` at
     its default ``--ranks`` (the cards: 1, a 1x1 mesh in one process, out
     (2, 5120)) and at 4 ranks (2x2, out (2, 10240)), ``output delta:
@@ -202,7 +213,8 @@ the card (``cuda:0``), in phases, each printing one line:
     own rule; the first line they print names it). Every process of every
     example prints its ``iir_tiles``/``biquad_section`` launches: all 0,
     since the examples' biquads run at 1 or 2 channels, off the kernels'
-    8-channel rule.
+    8-channel rule; ``mastering_chain.py`` also its ``envelope_block``
+    launches.
     Printed per example: the transport and the mesh, the wall seconds, the
     rate lines the script prints, and the launches.
 
@@ -477,6 +489,112 @@ def check_section(dev, shape, seed: int) -> dict:
         lambda: _biquad_section_ref(state, x, B, coefs), iters=5)
     res["bound_ms"], res["bound_by"] = bound_ms(
         4 * (2 * C * B + 8 * C + 6), 19 * C * B)
+    return res
+
+
+ENVELOPE_SHAPES = ((CHANNELS, BLOCK), (CHANNELS, 588))  # strip64's, a live block
+ENVELOPE_RTOL = 1e-4  # the plain follower's rounding over one block's decay
+
+
+def envelope_ops():
+    """strip64's gate, compressor and limiter, by kind."""
+    from pipe_tpu_torch import ops
+
+    return {"gate": ops.NoiseGate(-45.0, 60.0, attack_ms=1.0, release_ms=200.0),
+            "compressor": ops.Compressor(-18.0, 4.0, attack_ms=3.0,
+                                         release_ms=120.0, makeup_db=2.0),
+            "limiter": ops.Compressor(-15.0, float("inf"), attack_ms=0.2,
+                                      release_ms=60.0)}
+
+
+def gap_threshold(level_db, lo=-60.0, hi=-30.0, margin=1e-3) -> float:
+    """A gate threshold in the widest gap between the levels (dB) an
+    envelope takes within [lo, hi], at least ``margin`` dB from each: the
+    kernel's envelope and the plain one differ by ~3e-4 dB at most, so no
+    sample takes the other branch."""
+    v = np.sort(np.asarray(level_db, np.float64).ravel())
+    v = np.concatenate([[lo], v[(v > lo) & (v < hi)], [hi]])
+    i = int(np.argmax(np.diff(v)))
+    require(v[i + 1] - v[i] >= 2 * margin, f"no gate threshold {margin} dB "
+            "from every level")
+    return float(0.5 * (v[i] + v[i + 1]))
+
+
+def check_envelope(dev, shape, seed: int) -> dict:
+    """``envelope_block`` against its plain version on the card
+    (``ops.dynamics.envelope_block`` and the op's gain, then ``x * gain``)
+    for strip64's gate, compressor and limiter, from a carried state, for
+    the whole block and for 2/3 of it valid: every output sample, the new
+    raw follower and the new smoothed envelope (high plus low word) within
+    ``ENVELOPE_RTOL`` of the plain version's. The input's level jumps
+    every 300 frames between -10, -30 and -80 dBFS, so every follower rises
+    and decays and the gate opens and closes; the gate's threshold keeps
+    1e-3 dB from every level the plain envelope takes
+    (:func:`gap_threshold`). Times both for each kind. Its bound: x read
+    and y written once, 8 C B bytes."""
+    import torch
+
+    from pipe_tpu_torch import kernels
+    from pipe_tpu_torch.ops import dynamics
+
+    rng = np.random.default_rng(seed)
+    C, B = shape
+    levels = rng.choice([0.3, 0.03, 1e-4], size=(C, -(-B // 300)))
+    x = torch.tensor(rng.standard_normal((C, B)) * np.repeat(levels, 300, 1)[:, :B],
+                     dtype=torch.float32, device=dev)
+    env = torch.tensor(rng.uniform(0.0, 0.3, (C, 2)), dtype=torch.float32, device=dev)
+    env_lo = torch.tensor(rng.uniform(-1e-9, 1e-9, C), dtype=torch.float32, device=dev)
+    sr = float(SR_IN)
+    res = {}
+    for kind, op in envelope_ops().items():
+        p = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in op._p.items()}
+        gate = kind == "gate"
+
+        def plain(frames):
+            new0, new_lo, e = dynamics.envelope_block(
+                env, torch.abs(x), frames, dynamics._decay_coef(p["release_ms"], sr),
+                dynamics._attack_oma(p["attack_ms"], sr), env_lo)
+            return x * op._gain(e, p), new0, new_lo, e
+
+        def kernel(frames):
+            return kernels.envelope_block(
+                x, frames, env, env_lo, p["attack_ms"], p["release_ms"], sr,
+                gate, p["threshold_db"], p["range_db" if gate else "ratio"],
+                p.get("makeup_db"))
+
+        r = {"kind": kind, "shape": list(shape), "max_abs_err": 0.0,
+             "max_rel_err": 0.0}
+        for frames in (B, (2 * B) // 3):
+            if gate:
+                e = plain(frames)[3]
+                p["threshold_db"].fill_(gap_threshold(
+                    20 * np.log10(np.maximum(e.double().cpu().numpy(), 1e-8))))
+            y_p, env_p, lo_p, _ = plain(frames)
+            kernels.reset_counts()
+            y, new_env, new_lo = kernel(frames)
+            torch.cuda.synchronize()
+            require(kernels.launch_counts()["envelope_block"] == 1,
+                    f"envelope_block {kind} {shape}: one launch a call")
+            what = f"envelope_block {kind} {shape} frames={frames}"
+            got = [t.double().cpu().numpy() for t in (
+                y, new_env, new_env[:, 1] + new_lo.double())]
+            want = [t.double().cpu().numpy() for t in (
+                y_p, env_p, env_p[:, 1] + lo_p.double())]
+            require(np.isfinite(got[0]).all(), f"{what}: output finite")
+            for name, a, b in zip(("y", "new env", "new smoothed env"), got, want):
+                rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30),
+                                   initial=0.0, where=b != 0))
+                require(np.all(np.abs(a - b) <= ENVELOPE_RTOL * np.abs(b)),
+                        f"{what}: {name} vs plain, max rel err {rel:.3g}")
+                r["max_rel_err"] = max(r["max_rel_err"], rel)
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   float(np.max(np.abs(got[0] - want[0]))))
+        r["ms"] = cuda_ms(lambda: kernel(B), iters=200)
+        r["device_ms"] = graph_ms(lambda: kernel(B))
+        r["plain_ms"] = cuda_ms(lambda: plain(B), iters=5)
+        r["bound_ms"], r["bound_by"] = bound_ms(8 * C * B, 0)
+        res[(kind, *shape)] = r
     return res
 
 
@@ -1075,7 +1193,7 @@ def check_kit(port, dev) -> dict:
     import scipy.signal
     import torch
 
-    from pipe_tpu_torch import ops
+    from pipe_tpu_torch import kernels, ops
     from pipe_tpu_torch.signal import snr_db
 
     rng = np.random.default_rng(12)
@@ -1113,15 +1231,24 @@ def check_kit(port, dev) -> dict:
     ]
     res = {}
     cpu = torch.device("cpu")
+    blocks = -(-N // block)
     for name, x, make in cases:
         timed_run(port, x[:, :block], make, block, dev)  # warm-up
+        kernels.reset_counts()
         y, t_card = timed_run(port, x, make, block, dev)
+        # the envelope ops launch their kernel once a block, the rest none
+        launches = kernels.launch_counts()
+        want = blocks if name.split()[0] in ("Compressor", "NoiseGate") else 0
+        require(launches == {"iir_tiles": 0, "biquad_section": 0,
+                             "envelope_block": want},
+                f"{name}: launches {launches}, envelope_block expected {want}")
         y_cpu, t_cpu = timed_run(port, x, make, block, cpu)
         require(y.shape == y_cpu.shape and np.isfinite(y).all(),
                 f"{name}: output {y.shape}")
         db = snr_db(y_cpu, y)
         require(db >= 100, f"{name}: card vs CPU port {db:.1f} dB")
-        res[name] = {"db": db, "ms": 1e3 * t_card, "cpu_ms": 1e3 * t_cpu}
+        res[name] = {"db": db, "ms": 1e3 * t_card, "cpu_ms": 1e3 * t_cpu,
+                     "envelope_launches": launches["envelope_block"]}
 
     rows = np.stack([ops.design_peaking_eq(SR_IN, 20.0, 0.5, 6.0),
                      ops.design_peaking_eq(SR_IN, 1000.0, 4.0, -4.0)])
@@ -2525,14 +2652,17 @@ def say_four_ranks(s16: dict, card: str) -> None:
 
 EXAMPLES21 = HERE / "examples" / "torch"
 EXAMPLE_LIMIT_S = 240  # phase 21: one example's time limit, its ranks included
-LAUNCH_LINE = re.compile(r"kernel launches: iir_tiles (\d+), biquad_section (\d+)")
+LAUNCH_LINE = re.compile(r"kernel launches: iir_tiles (\d+), biquad_section (\d+)"
+                         r"(?:, envelope_block (\d+))?")
 
 
-def run_example(script: str, *args: str, processes: int = 1) -> dict:
+def run_example(script: str, *args: str, processes: int = 1,
+                envelope: int = 0) -> dict:
     """Phase 21: ``examples/torch/<script> args`` on the card, in a session
     of its own, killed with every process it started when it passes
     ``EXAMPLE_LIMIT_S``. Requires exit code 0 and, from each of its
-    ``processes``, a launch line with no kernel launch."""
+    ``processes``, a launch line with no biquad kernel launch and
+    ``envelope`` envelope kernel launches (0 where the line names none)."""
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, str(EXAMPLES21 / script), *args],
                             cwd=str(HERE), stdout=subprocess.PIPE,
@@ -2553,11 +2683,13 @@ def run_example(script: str, *args: str, processes: int = 1) -> dict:
     wall = time.perf_counter() - t0
     require(proc.returncode == 0, f"{script} {args} exited with "
             f"{proc.returncode}:\n{out[-3000:]}\n{err[-6000:]}")
-    launches = [(int(a), int(b)) for a, b in LAUNCH_LINE.findall(out)]
+    launches = [(int(a), int(b), int(c or 0)) for a, b, c in LAUNCH_LINE.findall(out)]
     require(len(launches) == processes,
             f"{script}: {len(launches)} launch lines for {processes} processes")
-    require(all(n == (0, 0) for n in launches),
+    require(all(n[:2] == (0, 0) for n in launches),
             f"{script} launched a biquad kernel at 1 or 2 channels: {launches}")
+    require(all(n[2] == envelope for n in launches),
+            f"{script}: envelope_block launches {launches}, expected {envelope}")
     lines = out.splitlines()
     return {"script": script, "args": list(args), "stdout": out, "wall": wall,
             "first": lines[0], "launches": launches,
@@ -2662,7 +2794,8 @@ def check_examples(port, count: int, four_ranks: bool) -> list:
     r["checks"] = f"message correlation {corr}"
     res.append(r)
     res.append(example_reverb(port))
-    r = run_example("mastering_chain.py")
+    # gate, compressor and limiter: one envelope launch each a 512-frame block
+    r = run_example("mastering_chain.py", envelope=3 * -(-88200 // 512))
     require("processed 88200 frames" in r["stdout"], r["stdout"])
     r["checks"] = "88200 frames processed"
     res.append(r)
@@ -2682,8 +2815,9 @@ def say_examples(res: list, card: str) -> None:
                 f"{r['first'] if 'transport' in r['first'] else 'one process, no mesh'}"
                 f"; {r['checks']}; {r['wall']:.2f} s wall"
                 + (f"; rate: {' | '.join(r['rates'])}" if r["rates"] else "")
-                + f"; iir_tiles/biquad_section launches per process "
-                  f"{r['launches']} (0: 1 or 2 channels); on {card}")
+                + f"; iir_tiles/biquad_section/envelope_block launches per "
+                  f"process {r['launches']} (biquads 0: 1 or 2 channels); on "
+                  f"{card}")
 
 
 def main(only_four_ranks: bool = False) -> None:
@@ -2764,6 +2898,19 @@ def main(only_four_ranks: bool = False) -> None:
                    *shape, r["snr_plain_db"], r["snr_f64_db"], r["max_abs_err"],
                    r["ms"], r["device_ms"], r["plain_ms"], r["bound_ms"],
                    r["bound_by"], min(r["snr_state_db"]), card))
+    eres = {}
+    for i, shape in enumerate(ENVELOPE_SHAPES):
+        eres.update(check_envelope(dev, shape, seed=60 + i))
+    for r in eres.values():
+        say(5, "envelope_block {} {}x{} (vs ops.dynamics.envelope_block and "
+               "the gain, whole block and 2/3 valid): max rel err {:.3g} (y, "
+               "new env, new smoothed env; limit {}), max abs err {:.3g}; "
+               "{:.4f} ms a call back to back, {:.4f} ms on the device alone "
+               "(CUDA graph), plain {:.4f} ms, bound {:.5f} ms ({}); on "
+               "{}".format(r["kind"], *r["shape"], r["max_rel_err"],
+                           ENVELOPE_RTOL, r["max_abs_err"], r["ms"],
+                           r["device_ms"], r["plain_ms"], r["bound_ms"],
+                           r["bound_by"], card))
     for i, shape in enumerate(SHARDED_SHAPES):
         kres[shape] = r = check_kernel(dev, shape, seed=40 + i)
         say(5, "iir_tiles {}x{} (a sharded chain's local block, both EQ "
@@ -2876,6 +3023,8 @@ def main(only_four_ranks: bool = False) -> None:
     kit = check_kit(port, dev)
     say(12, "kit card vs CPU port: " + "; ".join(
         f"{k}: {v['db']:.1f} dB, {v['ms']:.1f} ms (CPU {v['cpu_ms']:.1f} ms)"
+        + (f", envelope_block launches {v['envelope_launches']}"
+           if v.get("envelope_launches") else "")
         + (f", vs float64 {v['f64_db']:.1f} dB, default path "
            f"{v['default_ms']:.1f} ms at {v['default_f64_db']:.1f} dB"
            if "f64_db" in v else "")
@@ -3002,19 +3151,25 @@ def main(only_four_ranks: bool = False) -> None:
         tiles_paths[f"Pipe(mesh={k}) insert_processor, each of 4 ranks "
                     "(phase 20 d)"] = v["insert_launches"]
 
-    for r in s21:  # every process of every example: 0, at 1 or 2 channels
+    envelope_paths = {"envelope_block alone (phase 5)": 2 * len(eres)}
+    envelope_paths.update({f"{k} (phase 12)": v["envelope_launches"]
+                           for k, v in kit.items() if v.get("envelope_launches")})
+    for r in s21:  # biquads: 0 in every process, at 1 or 2 channels
         what = f"examples/torch/{r['script']} {' '.join(r['args'])} (phase 21)"
-        tiles_paths[what] = sum(n for n, _ in r["launches"])
-        section_paths[what] = sum(n for _, n in r["launches"])
+        tiles_paths[what] = sum(n[0] for n in r["launches"])
+        section_paths[what] = sum(n[1] for n in r["launches"])
+        envelope_paths[what] = sum(n[2] for n in r["launches"])
 
-    def kernel_entry(name, by_path, results):
-        r = results[main_shape]
+    def kernel_entry(name, by_path, results, main=main_shape,
+                     source="pipe_tpu_torch/csrc/iir_tiles.cu",
+                     replaces="pipe_tpu/ops/biquad.py:92"):
+        r = results[main]
         require(sum(by_path.values()) > 0, f"{name} was launched on no driven path")
         return {
             "name": name,
             "route": "cuda",
-            "source": "pipe_tpu_torch/csrc/iir_tiles.cu",
-            "replaces": "pipe_tpu/ops/biquad.py:92",
+            "source": source,
+            "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(v["max_abs_err"] for v in results.values()),
@@ -3023,17 +3178,23 @@ def main(only_four_ranks: bool = False) -> None:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes either
-            "shape": list(main_shape),
+            "library_ms": None,  # no single PyTorch call computes any
+            "shape": r["shape"],
             "other_shapes": [
-                {k: v[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
-                                   "plain_ms", "bound_ms", "bound_by")}
-                for shape, v in results.items() if shape != main_shape],
+                {k: v[k] for k in ("kind", "shape", "max_abs_err", "ms",
+                                   "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by") if k in v}
+                for key, v in results.items() if key != main],
         }
 
     print(json.dumps({"kernels": [
         kernel_entry("iir_tiles", tiles_paths, kres),
         kernel_entry("biquad_section", section_paths, sres),
+        # the JAX package runs these recurrences as lax.associative_scan: no
+        # TPU kernel is replaced
+        kernel_entry("envelope_block", envelope_paths, eres,
+                     main=("compressor", CHANNELS, BLOCK),
+                     source="pipe_tpu_torch/csrc/envelope.cu", replaces=None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

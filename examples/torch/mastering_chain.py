@@ -84,7 +84,8 @@ def main():
     print(f"gated tail peak:    {tail_db:6.2f} dBFS")
     n = kernels.launch_counts()
     print(f"kernel launches: iir_tiles {n['iir_tiles']}, "
-          f"biquad_section {n['biquad_section']}")
+          f"biquad_section {n['biquad_section']}, "
+          f"envelope_block {n['envelope_block']}")
 
 
 if __name__ == "__main__":

@@ -87,10 +87,11 @@ def stream(rank, n_ranks):
     oracle = np.concatenate([y1[:, :s], y2[:, s:]], axis=1)
     snr = snr_db(oracle, sink.values)
     n = kernels.launch_counts()
+    # one write, newline included: the ranks share one unbuffered stdout
     print(f"host {rank // RANKS_PER_HOST}: {N_CHUNKS} chunks streamed, SNR "
           f"{snr:.1f} dB (rank {rank})\n"
           f"rank {rank} kernel launches: iir_tiles {n['iir_tiles']}, "
-          f"biquad_section {n['biquad_section']}", flush=True)
+          f"biquad_section {n['biquad_section']}\n", end="", flush=True)
     assert snr > 100, (rank, snr)
 
 

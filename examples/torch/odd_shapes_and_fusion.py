@@ -97,8 +97,9 @@ def odd_shapes(rank, n_ranks):
         print(f"out {out.shape}, SNR vs oracle: {snr:.1f} dB")
     assert snr > 100, (rank, snr)
     n = kernels.launch_counts()
+    # one write, newline included: the ranks share one unbuffered stdout
     print(f"rank {rank} kernel launches: iir_tiles {n['iir_tiles']}, "
-          f"biquad_section {n['biquad_section']}", flush=True)
+          f"biquad_section {n['biquad_section']}\n", end="", flush=True)
 
 
 def main():

@@ -86,8 +86,9 @@ def flagship(rank, n_ranks):
         print("retuned threshold mid-stream; output delta:",
               float((out2 - out).abs().max()) > 0)
     n = kernels.launch_counts()
+    # one write, newline included: the ranks share one unbuffered stdout
     print(f"rank {rank} kernel launches: iir_tiles {n['iir_tiles']}, "
-          f"biquad_section {n['biquad_section']}", flush=True)
+          f"biquad_section {n['biquad_section']}\n", end="", flush=True)
 
 
 def main():

@@ -6,12 +6,14 @@ interface, under ``build/pipe_tpu_torch/`` beside the package (cached by a
 hash of the sources and flags), and bound with ``ctypes``. A missing
 ``nvcc`` or a failed build raises: there is no fallback.
 
-The two entry points take different shapes. :func:`biquad_section` takes
+The entry points take different shapes. :func:`biquad_section` takes
 any (C, B) block with ``C % 8 == 0`` and ``B >= 1`` (:func:`section_gate`):
 the last 256-frame tile may be partial, and the kernels read it as zeros
 past B and store nothing there. :func:`iir_tiles`, the counterpart of the
 TPU's Pallas call, keeps that call's gate (:func:`tile_gate`: also ``B %
 256 == 0`` and ``B >= 2048``), which the sharded ``BiquadStage`` reads.
+:func:`envelope_block` (``csrc/envelope.cu``: a compressor's, limiter's or
+noise gate's block in one launch) takes any ``C >= 1`` and ``B >= 1``.
 
 Each wrapper checks its inputs and raises on what the kernel does not take,
 allocates outputs and scratch with ``torch.empty``, enqueues its kernels on
@@ -52,7 +54,7 @@ IIR_CHANNELS_PER_BLOCK = 8
 # needs it; only iir_tiles keeps it, as the Pallas call's counterpart.
 IIR_MIN_B = 2048
 
-KERNELS = ("iir_tiles", "biquad_section")  # the wrappers below
+KERNELS = ("iir_tiles", "biquad_section", "envelope_block")  # the wrappers below
 
 _lib = None
 _lib_lock = threading.RLock()  # one build and one load per process
@@ -126,6 +128,10 @@ def _library():
         lib.pipe_iir_tiles.restype = ctypes.c_int
         lib.pipe_biquad_section.argtypes = [p, p, p, p, i, i, p, p, p, p, i, i, p]
         lib.pipe_biquad_section.restype = ctypes.c_int
+        f = ctypes.c_float
+        lib.pipe_envelope_block.argtypes = [p, p, p, p, p, p, p, p, f, i, i,
+                                            p, p, p, i, i, p]
+        lib.pipe_envelope_block.restype = ctypes.c_int
         lib.pipe_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pipe_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -166,33 +172,37 @@ def _check_block(name: str, x: torch.Tensor, state, params, gate,
     (C, 2) tensor and every ``(label, tensor, shape)`` of ``params`` of that
     many elements, all float32, contiguous and on the same card. Returns
     (C, B); raises ``ValueError`` naming the first thing the kernel does not
-    take."""
+    take: the block's shape, then each tensor's type, layout and shape, then
+    the device."""
     C, B = x.shape if x.ndim == 2 else (0, 0)
     dev = x.device
 
     def ok(t, shape, exact):
-        return (t.dtype is torch.float32 and t.device == dev and t.is_contiguous()
+        return (t.dtype is torch.float32 and t.is_contiguous()
                 and (t.shape == shape if exact else t.numel() == math.prod(shape)))
 
-    if (x.is_cuda and gate(C, B) and ok(x, (C, B), True)
-            and all(ok(t, (C, 2), True) for _, t in state)
-            and all(ok(t, shape, False) for _, t, shape in params)):
+    tensors = (("the block", x, (C, B), True),
+               *((label, t, (C, 2), True) for label, t in state),
+               *((label, t, shape, False) for label, t, shape in params))
+    if (x.is_cuda and gate(C, B)
+            and all(ok(t, shape, exact) and t.device == dev
+                    for _, t, shape, exact in tensors)):
         return C, B
-    if not x.is_cuda:
-        raise ValueError(f"{name}: the block must be a CUDA tensor, got {dev}")
     if x.ndim != 2:
         raise ValueError(f"{name}: the block must be (C, B), got {tuple(x.shape)}")
     if not gate(C, B):
         raise ValueError(f"{name}: block ({C}, {B}) is off its gate: {rule}")
-    for label, t, shape, exact in (
-            ("the block", x, (C, B), True),
-            *((label, t, (C, 2), True) for label, t in state),
-            *((label, t, shape, False) for label, t, shape in params)):
+    for label, t, shape, exact in tensors:
         if not ok(t, shape, exact):
             raise ValueError(
                 f"{name}: {label} must be a contiguous float32 tensor of "
-                f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}, contiguous: {t.is_contiguous()}")
+                f"shape {shape}, got {t.dtype} {tuple(t.shape)}, contiguous: "
+                f"{t.is_contiguous()}")
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the block must be a CUDA tensor, got {dev}")
+    for label, t, _, _ in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} must be on {dev}, got {t.device}")
     raise AssertionError("unreachable")
 
 
@@ -264,6 +274,50 @@ def biquad_section(x: torch.Tensor, frames: int, x_tail: torch.Tensor,
             frames, int(bool(refine)), y.data_ptr(), new_x_tail.data_ptr(),
             new_s.data_ptr(), scratch.data_ptr(), C, B)
     return y, new_x_tail, new_s
+
+
+def envelope_block(x: torch.Tensor, frames: int, env: torch.Tensor,
+                   env_lo: torch.Tensor, attack_ms: torch.Tensor,
+                   release_ms: torch.Tensor, sample_rate: float, gate: bool,
+                   threshold_db: torch.Tensor, amount: torch.Tensor,
+                   makeup_db=None) -> tuple:
+    """One compressor, limiter or noise gate over a block in one call
+    (``csrc/envelope.cu``): what
+    :func:`pipe_tpu_torch.ops.dynamics.envelope_block` and the op's gain
+    compute, and ``y = x * gain``. ``x`` (C, B) is valid to the host int
+    ``frames``; ``env`` (C, 2) and ``env_lo`` (C,) are the carried state.
+    ``attack_ms``, ``release_ms``, ``threshold_db``, ``amount`` and
+    ``makeup_db`` are the op's live 0-d params on the card (read by the
+    kernel, no host sync): a gate (``gate`` true) takes ``amount`` as its
+    range_db and no ``makeup_db``, a compressor or limiter ``amount`` as its
+    ratio (inf limits) and a ``makeup_db``. Returns ``(y, new_env,
+    new_env_lo)``. Needs float32 contiguous CUDA tensors, ``C >= 1`` and
+    ``B >= 1``."""
+    if gate != (makeup_db is None):
+        raise ValueError("envelope_block: a gate takes no makeup_db, a "
+                         "compressor needs one")
+    gain = (threshold_db, amount) + (() if gate else (makeup_db,))
+    C = x.shape[0] if x.ndim == 2 else 0
+    params = (("env_lo", env_lo, (C,)), ("attack_ms", attack_ms, ()),
+              ("release_ms", release_ms, ()),
+              *((label, t, ()) for label, t in
+                zip(("threshold_db", "amount", "makeup_db"), gain)))
+    C, B = _check_block("envelope_block", x, (("env", env),), params,
+                        lambda C, B: C >= 1 and B >= 1, "C and B must be >= 1")
+    frames = int(frames)
+    if not 0 <= frames <= B:
+        raise ValueError(f"envelope_block: frames={frames} outside [0, {B}]")
+    y = torch.empty_like(x)
+    carry = torch.empty(3 * C, dtype=torch.float32, device=x.device)
+    new_env, new_lo = carry[:2 * C].view(C, 2), carry[2 * C:]
+    _launch("envelope_block", x.device, _library().pipe_envelope_block,
+            x.data_ptr(), env.data_ptr(), env_lo.data_ptr(),
+            attack_ms.data_ptr(), release_ms.data_ptr(),
+            threshold_db.data_ptr(), amount.data_ptr(),
+            gain[-1].data_ptr(),  # a gate's is never read
+            float(sample_rate), frames, int(gate),
+            y.data_ptr(), new_env.data_ptr(), new_lo.data_ptr(), C, B)
+    return y, new_env, new_lo
 
 
 def _count(name: str) -> None:

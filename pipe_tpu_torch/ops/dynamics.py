@@ -13,6 +13,11 @@ state and params. The recurrences run as prefix scans over axis 1
 - a feedback delay shorter than the block as D lane-parallel one-pole
   scans. Longer delays read carried state only.
 
+On a CUDA block the envelope ops (``Compressor``, ``NoiseGate``) run the
+two scans, the refinement and the gain as one hand-written kernel a block
+(``kernels.envelope_block``, ``csrc/envelope.cu``); :func:`envelope_block`
+and the gain functions here are its plain version, which CPU blocks run.
+
 Tunables (times, thresholds, ratios, gains) are 0-d float32 param tensors,
 and coefficients such as ``exp(-1/(tau*sr))`` are computed from them every
 block, so retunes need no rebuild. Stream positions (the delay ring's
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pipe_tpu_torch import kernels
 from pipe_tpu_torch.components import Processor, param_tensor
 from pipe_tpu_torch.ops.biquad import _two_prod, _two_sum
 from pipe_tpu_torch.ops.prims import (
@@ -303,7 +309,10 @@ class Delay:
 class _EnvelopeDynamics:
     """Shared plumbing of the envelope-driven processors: the envelope
     state (``env`` (C, 2) and its dd low word ``env_lo`` (C,)), scalar
-    params, and :meth:`set`."""
+    params, and :meth:`set`. A CUDA block goes through
+    ``kernels.envelope_block`` (a gate's gain where ``_kind`` is
+    ``"gate"``, else a compressor's), a CPU block through
+    :func:`envelope_block` and :meth:`_gain`."""
 
     _kind = ""
 
@@ -321,6 +330,17 @@ class _EnvelopeDynamics:
             C, sr = props.channels, props.sample_rate
 
             def step(state, params, sig: Signal):
+                if sig.data.is_cuda:
+                    gate = self._kind == "gate"
+                    y, new0, new_lo = kernels.envelope_block(
+                        sig.data.contiguous(), sig.frames, state["env"],
+                        state["env_lo"], params["attack_ms"],
+                        params["release_ms"], sr, gate,
+                        params["threshold_db"],
+                        params["range_db" if gate else "ratio"],
+                        params.get("makeup_db"))
+                    return ({"env": new0, "env_lo": new_lo},
+                            sig.with_data(y))
                 rc = _decay_coef(params["release_ms"], sr)
                 ao = _attack_oma(params["attack_ms"], sr)
                 new0, new_lo, env = envelope_block(

@@ -7,6 +7,7 @@ the CPU. The file imports no JAX, so it runs on a card machine without it:
 the kernel wrapper's input validation and of the kernel module's thread
 safety run everywhere."""
 
+import re
 import sys
 import threading
 
@@ -23,6 +24,7 @@ from pipe_tpu_torch.ops.biquad import (
     biquad_init_state,
     biquad_section_block,
 )
+from pipe_tpu_torch.ops.dynamics import _attack_oma, _decay_coef, envelope_block
 from pipe_tpu_torch.signal import SignalProperties, snr_db
 
 
@@ -440,6 +442,398 @@ def test_biquad_cascade_launches_twice_per_section(cuda):
     assert snr_db(outs["cpu"], outs["cuda"]) > 100
 
 
+# -- the envelope kernel (compressor, limiter, noise gate) --------------------
+
+
+SR = 44100.0
+ENVELOPE_KINDS = ("gate", "compressor", "limiter")
+
+
+def _envelope_op(kind, **over):
+    """strip64's gate, compressor and limiter (``portbench/configs/
+    strip64.json``), with ``over`` in place of their settings."""
+    if kind == "gate":
+        p = dict(threshold_db=-45.0, range_db=60.0, attack_ms=1.0, release_ms=200.0)
+        return ops.NoiseGate(**{**p, **over})
+    p = (dict(threshold_db=-18.0, ratio=4.0, attack_ms=3.0, release_ms=120.0, makeup_db=2.0)
+         if kind == "compressor" else
+         dict(threshold_db=-15.0, ratio=float("inf"), attack_ms=0.2, release_ms=60.0,
+              makeup_db=0.0))
+    return ops.Compressor(**{**p, **over})
+
+
+def _envelope_params(op, device):
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in op._p.items()}
+
+
+def _envelope_plain(op, x, frames, env, env_lo, params):
+    """The op's step on the plain path: ``(y, new_env, new_env_lo)``."""
+    new0, new_lo, e = envelope_block(
+        env, torch.abs(x), frames, _decay_coef(params["release_ms"], SR),
+        _attack_oma(params["attack_ms"], SR), env_lo)
+    return x * op._gain(e, params), new0, new_lo
+
+
+def _envelope_kernel(op, x, frames, env, env_lo, params):
+    gate = op._kind == "gate"
+    return kernels.envelope_block(x, frames, env, env_lo, params["attack_ms"],
+                                  params["release_ms"], SR, gate, params["threshold_db"],
+                                  params["range_db" if gate else "ratio"],
+                                  params.get("makeup_db"))
+
+
+def _bursts(rng, C, n, seg=300):
+    """Noise whose level jumps every ``seg`` frames between -10, -30 and -80
+    dBFS: the followers both rise and decay, and a gate both opens and
+    closes."""
+    levels = rng.choice([0.3, 0.03, 1e-4], size=(C, -(-n // seg)))
+    return (rng.standard_normal((C, n)) * np.repeat(levels, seg, 1)[:, :n]).astype(np.float32)
+
+
+def _gap_threshold(env_db, lo=-60.0, hi=-30.0, margin=1e-3):
+    """A gate threshold in the widest gap between the levels ``env_db``
+    takes within [lo, hi] dB, at least ``margin`` dB from every one of them.
+    The two versions' envelopes differ by a few float32 ulps (~1e-5 dB at
+    -45 dB), and log10f by as little: a margin of 1e-3 dB keeps one ulp from
+    flipping the gate's branch at any sample."""
+    v = np.sort(np.asarray(env_db, np.float64).ravel())
+    v = np.concatenate([[lo], v[(v > lo) & (v < hi)], [hi]])
+    i = int(np.argmax(np.diff(v)))
+    thr = 0.5 * (v[i] + v[i + 1])
+    assert 0.5 * (v[i + 1] - v[i]) >= margin, "no threshold keeps the margin"
+    return thr
+
+
+def _level_db(env):
+    return 20.0 * np.log10(np.maximum(np.asarray(env, np.float64), 1e-8))
+
+
+def _envelope_f64(x, settings, device, state=None, frames=None):
+    """The op's release follower and smoothed envelope over ``x`` (C, N) in
+    float64, one sample at a time: ``settings`` lists ``(first frame,
+    params)``, each in force from its frame on; ``state`` is the carried
+    (C, 2) (raw, env) (zeros if None); ``x`` counts as zero from ``frames``
+    on. The coefficients are the float32 ones the op derives on ``device``
+    (torch's exp / expm1 there, which the kernel repeats): on the card
+    expf can sit an ulp from the correctly rounded value (it does for the
+    gate's 200 ms release), and an ulp of r is k 6e-8 over a decay of k
+    frames. What is held to float64 here is the recurrences. Returns
+    ``(raw, env)``, both (C, N)."""
+    def coefficients(p):
+        t = {k: torch.tensor(p[k], dtype=torch.float32, device=device)
+             for k in ("release_ms", "attack_ms")}
+        return (_decay_coef(t["release_ms"], SR).item(),
+                _attack_oma(t["attack_ms"], SR).item())
+
+    x = np.abs(np.asarray(x, np.float64))
+    C, N = x.shape
+    if frames is not None:
+        x[:, frames:] = 0.0
+    raw_all, env = np.empty((C, N)), np.empty((C, N))
+    raw, e = (np.zeros(C), np.zeros(C)) if state is None else np.asarray(state, np.float64).T
+    bounds = [s[0] for s in settings[1:]] + [N]
+    for (start, p), stop in zip(settings, bounds):
+        r, a = coefficients(p)
+        for n in range(start, stop):
+            raw = np.maximum(x[:, n], r * raw)
+            e = (1.0 - a) * e + a * raw
+            raw_all[:, n], env[:, n] = raw, e
+    return raw_all, env
+
+
+def _gain_f64(kind, p, env):
+    """The op's gain from its definition, in float64: a gate's 1 at the
+    threshold or above, else ``-range_db`` dB; a compressor's hard knee,
+    ``ratio`` inf limiting."""
+    level = _level_db(env)
+    if kind == "gate":
+        return np.where(level >= p["threshold_db"], 1.0, 10.0 ** (-p["range_db"] / 20.0))
+    slope = 1.0 - 1.0 / max(p["ratio"], 1.0)
+    over = np.maximum(level - p["threshold_db"], 0.0)
+    return 10.0 ** ((-over * slope + p["makeup_db"]) / 20.0)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _envelope_bad_arguments():
+    """``(message, arguments)`` cases, each with its id: arguments of
+    ``kernels.envelope_block`` with one thing wrong, on the CPU."""
+    C, B = 8, 64
+
+    def args(**over):
+        a = dict(x=torch.zeros(C, B), frames=B, env=torch.zeros(C, 2),
+                 env_lo=torch.zeros(C), attack_ms=torch.tensor(1.0),
+                 release_ms=torch.tensor(20.0), sample_rate=SR, gate=False,
+                 threshold_db=torch.tensor(-18.0), amount=torch.tensor(4.0),
+                 makeup_db=torch.tensor(0.0))
+        a.update(over)
+        return a
+
+    return [
+        pytest.param("must be a CUDA tensor", args(), id="cpu_tensor"),
+        pytest.param("float32", args(x=torch.zeros(C, B, dtype=torch.float64)), id="float64_block"),
+        pytest.param("contiguous", args(x=torch.zeros(B, C).T), id="non_contiguous_block"),
+        pytest.param("release_ms", args(release_ms=torch.zeros(2)), id="param_size"),
+        pytest.param("threshold_db", args(threshold_db=torch.zeros(3)), id="gain_param_size"),
+        pytest.param("env_lo", args(env_lo=torch.zeros(C + 1)), id="env_lo_size"),
+        pytest.param("env", args(env=torch.zeros(2, C)), id="env_shape"),
+        pytest.param("must be [(]C, B[)]", args(x=torch.zeros(B)), id="one_dimensional_block"),
+        pytest.param("C and B must be >= 1", args(x=torch.zeros(C, 0), frames=0), id="empty_block"),
+        pytest.param("takes no makeup_db", args(gate=True), id="gate_with_makeup"),
+        pytest.param("needs one", args(makeup_db=None), id="compressor_without_makeup"),
+    ]
+
+
+@pytest.mark.parametrize("message, arguments", _envelope_bad_arguments())
+def test_envelope_wrapper_refuses_bad_arguments(message, arguments):
+    """No fallback: ``kernels.envelope_block`` raises on what its kernel does
+    not take, naming it: the block's shape, each tensor's type, layout and
+    size, then the device (a CPU block)."""
+    with pytest.raises(ValueError, match=message):
+        kernels.envelope_block(**arguments)
+
+
+@pytest.mark.parametrize("kind", ENVELOPE_KINDS)
+def test_envelope_ops_on_the_cpu_take_the_plain_path(kind):
+    """On CPU tensors the gate, compressor and limiter run the plain
+    ``envelope_block`` and gain (bit for bit, through ``run`` with a partial
+    last block) and launch nothing."""
+    C, B = 4, 256
+    x = _bursts(np.random.default_rng(21), C, 5 * B + 100)
+    kernels.reset_counts()
+    got = []
+    line = pipe_tpu_torch.Line(
+        source=lambda m, b: pipe_tpu_torch.Source(output=SignalProperties(SR, C),
+                                                  feed=_array_feed(x)),
+        processors=[_envelope_op(kind).processor()],
+        sink=lambda m, b, p: pipe_tpu_torch.Sink(receive=got.append))
+    pipe_tpu_torch.run(B, line, device="cpu")
+    assert kernels.launch_counts()["envelope_block"] == 0
+    op, cpu = _envelope_op(kind), torch.device("cpu")
+    params = _envelope_params(op, cpu)
+    env, env_lo, want = torch.zeros(C, 2), torch.zeros(C), []
+    for k in range(0, x.shape[1], B):
+        blk = torch.zeros(C, B)
+        n = min(B, x.shape[1] - k)
+        blk[:, :n] = torch.from_numpy(x[:, k:k + n])
+        y, env, env_lo = _envelope_plain(op, blk, n, env, env_lo, params)
+        want.append(y[:, :n].numpy())
+    np.testing.assert_array_equal(np.concatenate(got, 1), np.concatenate(want, 1))
+
+
+@pytest.mark.gpu
+def test_envelope_wrapper_refuses_bad_arguments_on_the_card(cuda):
+    C, B = 8, 64
+    op = _envelope_op("compressor")
+    params = _envelope_params(op, cuda)
+    x, env, env_lo = (torch.zeros(C, B, device=cuda), torch.zeros(C, 2, device=cuda),
+                      torch.zeros(C, device=cuda))
+    for frames in (-1, B + 1):
+        with pytest.raises(ValueError, match="frames"):
+            _envelope_kernel(op, x, frames, env, env_lo, params)
+    with pytest.raises(ValueError, match="env_lo must be on"):
+        _envelope_kernel(op, x, B, env, env_lo.cpu(), params)
+    params["ratio"] = params["ratio"].cpu()
+    with pytest.raises(ValueError, match="amount must be on"):
+        _envelope_kernel(op, x, B, env, env_lo, params)
+
+
+# The plain path's release follower multiplies powers r^(2^j) that compound
+# the rounding of r: over a decay of one block (9,408 frames) it reads up to
+# 3.05e-5 against float64 at strip64's settings (measured on the CPU on these
+# inputs); the kernel walks it in float64 and rounds once a frame. So the
+# kernel is held to float64 at 4e-6 and to the plain path at 1e-4.
+PLAIN_RTOL = 1e-4
+F64_RTOL = 4e-6
+
+
+def _envelope_block_inputs(C, B, seed):
+    rng = np.random.default_rng(seed)
+    x = _bursts(rng, C, B)
+    env = rng.uniform(0.0, 0.3, (C, 2)).astype(np.float32)
+    env_lo = (rng.uniform(-1, 1, C) * 1e-9).astype(np.float32)
+    return x, env, env_lo
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("partial", [False, True], ids=["whole", "frames<B"])
+@pytest.mark.parametrize("shape", [(64, 9408), (64, 588), (8, 1), (3, 1000)])
+@pytest.mark.parametrize("kind", ENVELOPE_KINDS)
+def test_envelope_kernel_matches_plain(cuda, kind, shape, partial):
+    """One block from a carried state (env, env_lo), the kernel against the
+    op's float64 recurrences (:func:`_envelope_f64`) and against the plain
+    path on the card. The
+    output within ``F64_RTOL`` of each sample of ``x`` times the float64
+    gain: a float32 envelope a few ulps (1.2e-7 each) from the exact one
+    moves a compressor's gain by at most its slope times as much, and
+    log10f / powf add theirs; the carried raw and smoothed envelope (eh +
+    el) within ``F64_RTOL`` too. Against the plain path ``PLAIN_RTOL`` (its
+    follower's rounding, above). The gate's threshold keeps 1e-3 dB from
+    every level the float64 envelope takes (:func:`_gap_threshold`), over
+    eight times the plain path's 2.6e-4 dB, so its branch is the same at
+    every sample in all three."""
+    C, B = shape
+    frames = (B * 2) // 3 if partial else B
+    x, env0, lo0 = _envelope_block_inputs(C, B, C * 100003 + B + partial)
+    op = _envelope_op(kind)
+    p64 = dict(op._p)
+    state64 = np.stack([env0[:, 0], env0[:, 1].astype(np.float64) + lo0], 1)
+    raw64, env64 = _envelope_f64(x, [(0, p64)], cuda, state64, frames)
+    if kind == "gate":
+        p64["threshold_db"] = _gap_threshold(_level_db(env64))
+    want = x * _gain_f64(kind, p64, env64)
+    last = min(max(frames - 1, 0), B - 1)
+    params = _envelope_params(op, cuda)
+    params["threshold_db"].fill_(p64["threshold_db"])
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    kernels.reset_counts()
+    y, new_env, new_lo = _envelope_kernel(op, t(x), frames, t(env0), t(lo0), params)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["envelope_block"] == 1
+    y_p, env_p, lo_p = _envelope_plain(op, t(x), frames, t(env0), t(lo0), params)
+    y, y_p = y.cpu().double().numpy(), y_p.cpu().double().numpy()
+    new_env, env_p = new_env.cpu().double().numpy(), env_p.cpu().double().numpy()
+    whole = new_env[:, 1] + new_lo.cpu().double().numpy()
+    whole_p = env_p[:, 1] + lo_p.cpu().double().numpy()
+    assert np.all(np.abs(y - want) <= F64_RTOL * np.abs(want))
+    np.testing.assert_allclose(new_env[:, 0], raw64[:, last], rtol=F64_RTOL, atol=0)
+    np.testing.assert_allclose(whole, env64[:, last], rtol=F64_RTOL, atol=0)
+    assert np.all(np.abs(y - y_p) <= PLAIN_RTOL * np.abs(y_p))
+    np.testing.assert_allclose(new_env, env_p, rtol=PLAIN_RTOL, atol=0)
+    np.testing.assert_allclose(whole, whole_p, rtol=PLAIN_RTOL, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ENVELOPE_KINDS)
+def test_envelope_kernel_stream_with_a_retune(cuda, kind):
+    """20 blocks of (64, 588), the last one partial, through the op's step on
+    the card (the kernel), and the same on the plain path on the card;
+    ``op.set`` retunes threshold, attack and release between blocks 9 and
+    10. After every block the kernel's carried state is within ``F64_RTOL``
+    of the float64 recurrences' at the block's last valid frame, and within
+    ``PLAIN_RTOL`` of the plain path's; the kernel's whole stream within
+    ``F64_RTOL`` of each sample of the float64 output. The gate's
+    thresholds keep 1e-3 dB from the float64 envelope in force."""
+    from pipe_tpu_torch import mutable
+
+    C, B, n_blocks, at = 64, 588, 20, 10
+    N = n_blocks * B - 200
+    x = _bursts(np.random.default_rng(31), C, N)
+    retune = dict(attack_ms=0.5, release_ms=40.0,
+                  threshold_db={"gate": -50.0, "compressor": -24.0, "limiter": -12.0}[kind])
+    first = dict(_envelope_op(kind)._p)
+    second = {**first, **retune}
+    raw64, env64 = _envelope_f64(x, [(0, first), (at * B, second)], cuda)
+    if kind == "gate":
+        first["threshold_db"] = _gap_threshold(_level_db(env64[:, :at * B]))
+        second["threshold_db"] = retune["threshold_db"] = _gap_threshold(
+            _level_db(env64[:, at * B:]))
+    want = x * np.concatenate([_gain_f64(kind, first, env64[:, :at * B]),
+                               _gain_f64(kind, second, env64[:, at * B:])], 1)
+    props = SignalProperties(SR, C, cuda)
+    outs, states = {}, {}
+    for path in ("kernel", "plain"):
+        op = _envelope_op(kind, **first)
+        comp = op.processor()(mutable.mutable(), B, props)
+        step = (comp.step if path == "kernel" else
+                lambda st, p, sig, op=op: _plain_step(op, st, p, sig))
+        state, ys, states[path] = comp.state, [], []
+        for k in range(n_blocks):
+            if k == at:
+                op.set(**retune).apply()
+            frames = min(B, N - k * B)
+            blk = torch.zeros(C, B, device=cuda)
+            blk[:, :frames] = torch.from_numpy(x[:, k * B:k * B + frames]).to(cuda)
+            state, sig = step(state, comp.params, pipe_tpu_torch.Signal(blk, frames))
+            ys.append(sig.data[:, :frames].cpu().numpy())
+            env, lo = state["env"].cpu().double().numpy(), state["env_lo"].cpu().double().numpy()
+            states[path].append(np.stack([env[:, 0], env[:, 1] + lo], 1))
+        outs[path] = np.concatenate(ys, 1)
+    for k in range(n_blocks):
+        last = min(N, (k + 1) * B) - 1
+        np.testing.assert_allclose(states["kernel"][k][:, 0], raw64[:, last],
+                                   rtol=F64_RTOL, atol=0, err_msg=f"block {k}")
+        np.testing.assert_allclose(states["kernel"][k][:, 1], env64[:, last],
+                                   rtol=F64_RTOL, atol=0, err_msg=f"block {k}")
+        np.testing.assert_allclose(states["kernel"][k], states["plain"][k],
+                                   rtol=PLAIN_RTOL, atol=0, err_msg=f"block {k}")
+    assert np.all(np.abs(outs["kernel"] - want) <= F64_RTOL * np.abs(want))
+    assert _rel(outs["plain"], want) < 1e-5
+
+
+def _plain_step(op, state, params, sig):
+    y, new0, new_lo = _envelope_plain(op, sig.data, sig.frames, state["env"],
+                                      state["env_lo"], params)
+    return {"env": new0, "env_lo": new_lo}, sig.with_data(y)
+
+
+# the name rule of the benchmark's ``biquad_section_roofline``: every
+# device kernel it reads
+BIQUAD_KERNEL = re.compile(r"(^|::)biquad_")
+
+
+def _strip64_line(source, sink):
+    """The benchmark's strip64 line at its settings (the compressor's
+    threshold one of its draws): gate -> 120 Hz low shelf +1.5 dB -> 2 kHz
+    peak +3 dB (two ``Biquad`` ops, which ``optimize.fuse`` makes one
+    cascade) -> compressor -> limiter -> feedback echo."""
+    procs = [
+        _envelope_op("gate").processor(),
+        ops.Biquad(ops.design_lowshelf(SR, 120.0, 1.5, 1.0).astype(np.float32)).processor(),
+        ops.Biquad(ops.design_peaking_eq(SR, 2000.0, 1.0, 3.0).astype(np.float32)).processor(),
+        _envelope_op("compressor", threshold_db=-17.0).processor(),
+        _envelope_op("limiter").processor(),
+        ops.Delay(11025, feedback=0.35, wet=0.25, dry=1.0).processor(),
+    ]
+    return pipe_tpu_torch.optimize.fuse(
+        pipe_tpu_torch.Line(source=source, processors=procs, sink=sink))
+
+
+@pytest.mark.gpu
+def test_strip64_line_launches_the_envelope_kernel_three_times_a_block(cuda):
+    """The strip64 cell's line (:func:`_strip64_line`: gate, fused EQ,
+    compressor, limiter, echo) on the card: 3 ``envelope_block`` launches a
+    block and the fused cascade's 2 ``biquad_section``; in the profiler's
+    kernel names the envelope kernel is never one that
+    ``biquad_section_roofline``'s rule reads. Its output is within 1e-5 of
+    the same line on the CPU: the card's section kernel and the CPU's eager
+    section round the 120 Hz shelf's recurrence apart (that shelf sets the
+    cell's 3e-5 against float64), the envelope ops differ by their ulps."""
+    C, B, n_blocks = 64, 9408, 6
+    x = (np.random.default_rng(21).standard_normal((C, n_blocks * B)) * 0.1).astype(np.float32)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        got = []
+        line = _strip64_line(
+            lambda m, b: pipe_tpu_torch.Source(output=SignalProperties(SR, C),
+                                                  feed=_array_feed(x)),
+            lambda m, b, p: pipe_tpu_torch.Sink(receive=got.append))
+        kernels.reset_counts()
+        if dev.type == "cuda":
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                pipe_tpu_torch.run(B, line, device=dev)
+                torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            assert counts == {"iir_tiles": 0, "biquad_section": 2 * n_blocks,
+                              "envelope_block": 3 * n_blocks}
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            envelope = [n for n in names if "envelope_block_kernel" in n]
+            assert len(envelope) == 3 * n_blocks
+            assert not any(BIQUAD_KERNEL.search(n) for n in envelope)
+            assert sum(bool(BIQUAD_KERNEL.search(n)) for n in names) == 3 * 2 * n_blocks
+        else:
+            pipe_tpu_torch.run(B, line, device=dev)
+            assert kernels.launch_counts()["envelope_block"] == 0
+        outs[dev.type] = np.concatenate(got, 1)
+    assert outs["cuda"].shape == outs["cpu"].shape == x.shape
+    assert _rel(outs["cuda"], outs["cpu"]) < 1e-5
+
+
 def _array_feed(x):
     pos = [0]
 
@@ -495,17 +889,17 @@ def test_library_builds_once_under_threads(monkeypatch):
 
 
 def test_launch_counts_exact_under_threads():
-    """8 threads counting 2,000 launches each with a short switch interval,
-    half of them of each kernel: no increment is lost, in total or per
+    """9 threads counting 2,000 launches each with a short switch interval,
+    a third of them of each kernel: no increment is lost, in total or per
     thread, and each kernel keeps its own count."""
     kernels.reset_counts()
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(
-            target=lambda k=kernels.KERNELS[i % 2]: [
+            target=lambda k=kernels.KERNELS[i % 3]: [
                 kernels._count(k) for _ in range(2000)],
-            name=f"counter{i}") for i in range(8)]
+            name=f"counter{i}") for i in range(9)]
         for t in threads:
             t.start()
         for t in threads:
@@ -513,12 +907,14 @@ def test_launch_counts_exact_under_threads():
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
-    assert kernels.launch_counts() == {"iir_tiles": 8000, "biquad_section": 8000}
-    assert kernels.iir_tiles_launches == 8000
+    assert kernels.launch_counts() == {"iir_tiles": 6000, "biquad_section": 6000,
+                                       "envelope_block": 6000}
+    assert kernels.iir_tiles_launches == 6000
     assert kernels.launch_counts(by_thread=True) == {
-        f"counter{i}": {kernels.KERNELS[i % 2]: 2000} for i in range(8)}
+        f"counter{i}": {kernels.KERNELS[i % 3]: 2000} for i in range(9)}
     kernels.reset_counts()
-    assert kernels.launch_counts() == {"iir_tiles": 0, "biquad_section": 0}
+    assert kernels.launch_counts() == {"iir_tiles": 0, "biquad_section": 0,
+                                       "envelope_block": 0}
     assert kernels.iir_tiles_launches == 0
     assert kernels.launch_counts(by_thread=True) == {}
 
@@ -552,7 +948,8 @@ def test_kernel_from_two_threads(cuda):
         t.join(120)
     torch.cuda.synchronize()
     assert not any(t.is_alive() for t in threads)
-    assert kernels.launch_counts() == {"iir_tiles": 40, "biquad_section": 40}
+    assert kernels.launch_counts() == {"iir_tiles": 40, "biquad_section": 40,
+                                       "envelope_block": 0}
     assert kernels.launch_counts(by_thread=True) == {
         f"k{i}": {"iir_tiles": 20, "biquad_section": 20} for i in range(2)}
     for i in range(2):
@@ -887,7 +1284,8 @@ def test_sharded_biquad_stage_launches_the_tile_kernel(cuda):
                                   device=cuda)
     kernels.reset_counts()
     y = chain.process(x)
-    assert kernels.launch_counts() == {"iir_tiles": 6, "biquad_section": 0}
+    assert kernels.launch_counts() == {"iir_tiles": 6, "biquad_section": 0,
+                                       "envelope_block": 0}
 
     plain = parallel.ShardedChain(mesh, [parallel.BiquadStage(sos)], 16, 4096,
                                   device=cuda)
