@@ -26,9 +26,9 @@ the card (``cuda:0``), in phases, each printing one line:
    back and as a replayed CUDA graph (device time alone), beside their
    bound. ``iir_tiles`` alone is held and timed the same way at the local
    blocks that the sharded chain of phases 15 and 16 gives it: (64,
-   327680), (32, 20480) and (64, 40960); ``biquad_section`` alone at
-   shapes off that gate, with a partial last tile: (64, 640) (the live
-   console's EQ block) and (16, 1000) (a length not a multiple of 4).
+   327680), (32, 20480) and (64, 40960); ``biquad_section`` alone at two
+   shapes with a partial last tile: (64, 640) (the live console's EQ
+   block) and (16, 1000) (a length not a multiple of 4).
    ``envelope_block`` (``csrc/envelope.cu``: a compressor's, limiter's or
    noise gate's block in one launch) for strip64's gate, compressor and
    limiter at (64, 9408) and (64, 588), from a carried state, whole and
@@ -269,10 +269,10 @@ C4, B4 = 16, 8192  # BASELINE config 4: 16 channels, 8192-frame blocks
 # slice's (the sharded chain's shapes, for ``iir_tiles`` alone, are
 # SHARDED_SHAPES below)
 KERNEL_SHAPES = ((8, 4096), (C4, B4), (CHANNELS, 10240))
-# shapes that only ``biquad_section`` takes (``iir_tiles`` keeps the tile
-# gate): console64-live's EQ block after the resampler (588 * 160 / 147 =
-# 640 frames, a partial last tile) and a length that is not a multiple of 4
-# (the scalar stores)
+# shapes with a partial last tile, held for ``biquad_section`` alone
+# (tests/test_torch_gpu.py holds ``iir_tiles`` at such shapes):
+# console64-live's EQ block after the resampler (588 * 160 / 147 = 640
+# frames) and a length that is not a multiple of 4 (the scalar stores)
 SECTION_SHAPES = ((CHANNELS, 640), (C4, 1000))
 N4 = SR_IN * SECONDS
 EQ_AT, GAIN_AT = 20, 30  # phase 11's retune blocks
@@ -373,7 +373,7 @@ def check_kernel(dev, shape, seed: int) -> dict:
     import torch
 
     from pipe_tpu_torch import kernels
-    from pipe_tpu_torch.ops.biquad import _iir_apply
+    from pipe_tpu_torch.ops.biquad import _iir_tiles
     from pipe_tpu_torch.signal import snr_db
 
     rng = np.random.default_rng(seed)
@@ -387,7 +387,7 @@ def check_kernel(dev, shape, seed: int) -> dict:
         a1 = torch.tensor(row[4], device=dev)
         a2 = torch.tensor(row[5], device=dev)
         y_k = kernels.iir_tiles(v, s, a1, a2)
-        y_p = _iir_apply(v, s, a1, a2, force="tiles")
+        y_p = _iir_tiles(v, s, a1, a2)
         torch.cuda.synchronize()
         yk, yp = y_k.cpu().numpy(), y_p.cpu().numpy()
         ref = recurrence_f64(v.cpu().numpy(), s.cpu().numpy(),
@@ -403,8 +403,7 @@ def check_kernel(dev, shape, seed: int) -> dict:
     a2 = torch.tensor(sos[0, 5], device=dev)
     res["ms"] = cuda_ms(lambda: kernels.iir_tiles(v, s, a1, a2), iters=200)
     res["device_ms"] = graph_ms(lambda: kernels.iir_tiles(v, s, a1, a2))
-    res["plain_ms"] = cuda_ms(
-        lambda: _iir_apply(v, s, a1, a2, force="tiles"), iters=5)
+    res["plain_ms"] = cuda_ms(lambda: _iir_tiles(v, s, a1, a2), iters=5)
     res["bound_ms"], res["bound_by"] = bound_ms(
         4 * (2 * C * B + 2 * C + 2), 4 * C * B)
     return res
@@ -990,7 +989,7 @@ def check_config4(port, dev, x) -> dict:
 
     from pipe_tpu_torch import kernels, ops
     from pipe_tpu_torch.ops import biquad as biquad_ops
-    from pipe_tpu_torch.ops.biquad import _biquad_section_ref, _iir_apply
+    from pipe_tpu_torch.ops.biquad import _biquad_section_ref, _iir_tiles
     from pipe_tpu_torch.ops.ols import ols_block, ols_init_state, partition_ir
     from pipe_tpu_torch.signal import snr_db
 
@@ -1039,11 +1038,11 @@ def check_config4(port, dev, x) -> dict:
     s = torch.tensor(rng.standard_normal((C4, 2)), dtype=torch.float32, device=dev)
     a1, a2 = (torch.tensor(c, dtype=torch.float32, device=dev)
               for c in np.float32(peaking_sos()[4:6]))
-    kernel_db = snr_db(_iir_apply(xb, s, a1, a2, force="tiles").cpu().numpy(),
+    kernel_db = snr_db(_iir_tiles(xb, s, a1, a2).cpu().numpy(),
                        kernels.iir_tiles(xb, s, a1, a2).cpu().numpy())
     require(kernel_db >= 110, f"iir_tiles ({C4}, {B4}) vs plain {kernel_db:.1f} dB")
     kernel_ms = cuda_ms(lambda: kernels.iir_tiles(xb, s, a1, a2), iters=200)
-    plain_ms = cuda_ms(lambda: _iir_apply(xb, s, a1, a2, force="tiles"), iters=5)
+    plain_ms = cuda_ms(lambda: _iir_tiles(xb, s, a1, a2), iters=5)
     coefs = torch.tensor(np.float32(peaking_sos()), device=dev)
     st = {"x_tail": s.flip(1).contiguous(), "s": s}
     section_db = snr_db(
@@ -1059,7 +1058,7 @@ def check_config4(port, dev, x) -> dict:
     # the profiled run must stay inside the kernels: no eager section, no
     # eager recurrence, no float64 kernel (the eager refinement's defect)
     eager = []
-    spied = {n: getattr(biquad_ops, n) for n in ("_biquad_section_ref", "_iir_apply")}
+    spied = {n: getattr(biquad_ops, n) for n in ("_biquad_section_ref", "_iir_plain")}
     for n, fn in spied.items():
         setattr(biquad_ops, n,
                 lambda *a, _n=n, _fn=fn, **k: eager.append(_n) or _fn(*a, **k))
@@ -1308,10 +1307,8 @@ def check_knob_on_plain_biquad(dev) -> int:
     x = torch.tensor(rng.standard_normal((8, 2560)), dtype=torch.float32, device=dev)
     s = torch.tensor(rng.standard_normal((8, 2)), dtype=torch.float32, device=dev)
     paths = {
-        "_iir_apply(force='tiles')": lambda: biquad._iir_apply(
-            x, s, coefs[4], coefs[5], force="tiles"),
-        "_iir_apply(force='assoc')": lambda: biquad._iir_apply(
-            x, s, coefs[4], coefs[5], force="assoc"),
+        "_iir_tiles": lambda: biquad._iir_tiles(x, s, coefs[4], coefs[5]),
+        "_iir_assoc": lambda: biquad._iir_assoc(x, s, coefs[4], coefs[5]),
         "_biquad_section_ref": lambda: biquad._biquad_section_ref(
             {"x_tail": s, "s": s}, x, 2560, coefs)[1],
         "biquad_section_block_extended": lambda: biquad.biquad_section_block_extended(

@@ -6,23 +6,23 @@ interface, under ``build/pipe_tpu_torch/`` beside the package (cached by a
 hash of the sources and flags), and bound with ``ctypes``. A missing
 ``nvcc`` or a failed build raises: there is no fallback.
 
-The entry points take different shapes. :func:`biquad_section` takes
-any (C, B) block with ``C % 8 == 0`` and ``B >= 1`` (:func:`section_gate`):
-the last 256-frame tile may be partial, and the kernels read it as zeros
-past B and store nothing there. :func:`iir_tiles`, the counterpart of the
-TPU's Pallas call, keeps that call's gate (:func:`tile_gate`: also ``B %
-256 == 0`` and ``B >= 2048``), which the sharded ``BiquadStage`` reads.
-:func:`envelope_block` (``csrc/envelope.cu``: a compressor's, limiter's or
-noise gate's block in one launch) takes any ``C >= 1`` and ``B >= 1``.
+The two biquad entry points, :func:`iir_tiles` (the counterpart of the TPU's
+Pallas call) and :func:`biquad_section`, are backed by the same device code
+and take the same blocks, which one predicate decides
+(:func:`section_gate`): any (C, B) block with ``C`` a positive multiple of 8,
+no more 8-channel groups than a grid's 65,535 rows, and ``B >= 1``. The last
+256-frame tile may be partial: the kernels read it as zeros past B and store
+nothing there. :func:`envelope_block` (``csrc/envelope.cu``: a compressor's,
+limiter's or noise gate's block in one launch) takes any ``C >= 1`` and
+``B >= 1``.
 
 Each wrapper checks its inputs and raises on what the kernel does not take,
 allocates outputs and scratch with ``torch.empty``, enqueues its kernels on
 ``torch.cuda.current_stream()`` with one call into the library, raises if
 that reports a CUDA error, and counts the call per kernel name, in total and
-per launching thread (:func:`launch_counts`; ``iir_tiles_launches`` reads
-the ``iir_tiles`` entry), so a run can show that it went through the kernel.
-Executor threads launch kernels concurrently: the build and the counts are
-under locks, and scratch is per call.
+per launching thread (:func:`launch_counts`), so a run can show that it went
+through the kernel. Executor threads launch kernels concurrently: the build
+and the counts are under locks, and scratch is per call.
 """
 
 from __future__ import annotations
@@ -48,11 +48,7 @@ NVCC_FLAGS = (
 
 IIR_TILE = 256  # tile length Q of the biquad kernel
 IIR_CHANNELS_PER_BLOCK = 8
-# the JAX package's _TILE_MIN_B (pipe_tpu/ops/biquad.py:136), a TPU choice:
-# there XLA fuses the associative scan into one program while the Pallas
-# kernel walks its tiles as a sequential grid. Nothing in the CUDA kernels
-# needs it; only iir_tiles keeps it, as the Pallas call's counterpart.
-IIR_MIN_B = 2048
+IIR_MAX_GROUPS = 65535  # 8-channel groups: a CUDA grid's y extent
 
 KERNELS = ("iir_tiles", "biquad_section", "envelope_block")  # the wrappers below
 
@@ -144,20 +140,17 @@ def _check_launch(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
-def tile_gate(C: int, B: int) -> bool:
-    """Whether a (C, B) block is one :func:`iir_tiles` takes."""
-    return C % IIR_CHANNELS_PER_BLOCK == 0 and B % IIR_TILE == 0 and B >= IIR_MIN_B
-
-
 def section_gate(C: int, B: int) -> bool:
-    """Whether a (C, B) block is one :func:`biquad_section` takes: whole
-    8-channel groups and at least one frame, the last tile possibly
-    partial."""
-    return C > 0 and C % IIR_CHANNELS_PER_BLOCK == 0 and B >= 1
+    """Whether a (C, B) block is one the biquad kernels (:func:`iir_tiles`,
+    :func:`biquad_section`) take: whole 8-channel groups, at most
+    ``IIR_MAX_GROUPS`` of them, and at least one frame, the last tile
+    possibly partial."""
+    groups, rest = divmod(C, IIR_CHANNELS_PER_BLOCK)
+    return 0 < groups <= IIR_MAX_GROUPS and rest == 0 and B >= 1
 
 
-_TILE_RULE = "C must be a multiple of 8, B a multiple of 256 and >= 2048"
-_SECTION_RULE = "C must be a positive multiple of 8 and B >= 1"
+_SECTION_RULE = ("C must be a positive multiple of 8 of at most "
+                 f"{IIR_CHANNELS_PER_BLOCK * IIR_MAX_GROUPS} and B >= 1")
 
 
 def _tiles(B: int) -> int:
@@ -165,8 +158,8 @@ def _tiles(B: int) -> int:
     return -(-B // IIR_TILE)
 
 
-def _check_block(name: str, x: torch.Tensor, state, params, gate,
-                 rule: str) -> tuple:
+def _check_block(name: str, x: torch.Tensor, state, params,
+                 gate=section_gate, rule: str = _SECTION_RULE) -> tuple:
     """``x`` must be a float32 contiguous CUDA (C, B) block that passes
     ``gate`` (``rule`` says how), every ``(label, tensor)`` of ``state`` a
     (C, 2) tensor and every ``(label, tensor, shape)`` of ``params`` of that
@@ -236,10 +229,9 @@ def iir_tiles(v: torch.Tensor, s: torch.Tensor, a1: torch.Tensor,
     - a1 y[n-1] - a2 y[n-2]`` over ``v`` (C, B) from the carried state ``s``
     (C, 2) = (y[-1], y[-2]). ``a1``/``a2`` are 0-d tensors on the same card
     (read by the kernel, so no host sync). Needs float32 contiguous CUDA
-    tensors, ``C % 8 == 0``, ``B % 256 == 0`` and ``B >= 2048``
-    (:func:`tile_gate`)."""
+    tensors and a block on :func:`section_gate`."""
     C, B = _check_block("iir_tiles", v, (("s", s),),
-                        (("a1", a1, ()), ("a2", a2, ())), tile_gate, _TILE_RULE)
+                        (("a1", a1, ()), ("a2", a2, ())))
     y = torch.empty_like(v)
     zl = torch.empty(2 * C * _tiles(B), dtype=torch.float32, device=v.device)
     _launch("iir_tiles", v.device, _library().pipe_iir_tiles,
@@ -256,11 +248,10 @@ def biquad_section(x: torch.Tensor, frames: int, x_tail: torch.Tensor,
     (C, B) is valid to the host int ``frames``; ``x_tail`` and ``s`` (C, 2)
     are the carried state, ``coefs`` the live (6,) row [b0, b1, b2, 1, a1,
     a2] on the card (read by the kernels, no host sync). Returns ``(y,
-    new_x_tail, new_s)``. Needs float32 contiguous CUDA tensors, ``C % 8 ==
-    0`` and ``B >= 1`` (:func:`section_gate`); B need not fill whole
-    tiles."""
+    new_x_tail, new_s)``. Needs float32 contiguous CUDA tensors and a block
+    on :func:`section_gate`."""
     C, B = _check_block("biquad_section", x, (("x_tail", x_tail), ("s", s)),
-                        (("coefs", coefs, (6,)),), section_gate, _SECTION_RULE)
+                        (("coefs", coefs, (6,)),))
     frames = int(frames)
     if not 0 <= frames <= B:
         raise ValueError(f"biquad_section: frames={frames} outside [0, {B}]")
@@ -346,8 +337,3 @@ def launch_counts(by_thread: bool = False) -> dict:
             return {t: dict(c) for t, c in _thread_launches.items()}
         return dict(_launches)
 
-
-def __getattr__(name: str):
-    if name == "iir_tiles_launches":  # the ``iir_tiles`` entry, read live
-        return launch_counts()["iir_tiles"]
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,29 +2,26 @@
 ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``, with one refinement pass.
 
 The PyTorch counterpart of :mod:`pipe_tpu.ops.biquad`'s default float32
-path. A section's block on the card whose channel count is a multiple of 8
-(``kernels.section_gate``: any ``B >= 1``, the last 256-frame tile possibly
-partial) is one call of the hand-written CUDA kernels
-(``kernels.biquad_section``: the FIR part, the recurrence, the refinement
-pass and the state update together); every other block takes the same
-steps as eager ops (:func:`_biquad_section_ref`, which runs the recurrence
-as ``'tiles'`` on the same shapes and as ``'assoc'`` on the others).
-:func:`_iir_apply` picks how the recurrence alone runs:
+path. One predicate, ``kernels.section_gate`` (a channel count that is a
+positive multiple of 8, any ``B >= 1``), decides which blocks on the card
+reach the hand-written CUDA kernels (``csrc/iir_tiles.cu``), with no
+fallback: a whole section (:func:`biquad_section_block`) is one
+``kernels.biquad_section`` call (the FIR part, the recurrence, the
+refinement pass and the state update together), the recurrence alone
+(:func:`_iir_apply`, which the sharded ``BiquadStage`` runs) one
+``kernels.iir_tiles`` call, the port of the TPU's Pallas tile kernel.
+Every other block takes the plain versions, :func:`_biquad_section_ref`
+and :func:`_iir_plain`, whose recurrence runs
 
-- ``'kernel'``: the hand-written CUDA kernel (``kernels.iir_tiles``, the
-  port of the TPU's Pallas tile kernel). Taken for every CUDA tensor that
-  passes the tile gate (``kernels.tile_gate``: ``B % 256 == 0``,
-  ``B >= 2048``, ``C % 8 == 0``, the JAX package's gate).
-- ``'tiles'``: its plain PyTorch version (:func:`_iir_tiles_ref`) in the
-  kernel's three passes over 256-sample tiles: every tile's product with
-  the lower-triangular Toeplitz matrix of the impulse response at once,
-  the (C, 2) carries from tile to tile, and the rank-2 boundary term added
-  to all tiles; a partial last tile is zero-padded, as the kernels read it.
-  Taken for CPU tensors that pass the tile gate.
-- ``'assoc'``: the affine recurrence over 2-vectors,
-  ``s[n] = A s[n-1] + u[n]``, evaluated by prefix doubling over
-  ``(A, u)`` pairs in float64 (see :func:`_iir_assoc`). Taken for blocks
-  that fail the gate.
+- on a block that passes the gate as :func:`_iir_tiles`, the kernels'
+  three passes over 256-sample tiles (:func:`_iir_tiles_ref`): every
+  tile's product with the lower-triangular Toeplitz matrix of the impulse
+  response at once, the (C, 2) carries from tile to tile, and the rank-2
+  boundary term added to all tiles; a partial last tile is zero-padded, as
+  the kernels read it;
+- on any other block as :func:`_iir_assoc`: the affine recurrence over
+  2-vectors, ``s[n] = A s[n-1] + u[n]``, by prefix doubling over
+  ``(A, u)`` pairs in float64.
 
 ``Biquad(precision='extended')`` runs each section in double-f32 instead:
 coefficients, forcing, recurrence and carried state are unevaluated
@@ -151,32 +148,35 @@ def _iir_assoc(v, s, a1, a2):
     return (a * s[:, 0:1] + b * s[:, 1:2] + ux).float()
 
 
-def _iir_apply(v, s, a1, a2, force: str | None = None):
-    """Dispatch the recurrence ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``.
-
-    Blocks that pass the tile gate take the CUDA kernel on the card and its
-    plain version on the CPU; other blocks take the prefix-doubling path.
-    ``force`` pins a path: 'assoc' | 'tiles' (any B) | 'kernel'.
-    """
+def _iir_tiles(v, s, a1, a2):
+    """The recurrence as the kernels run it, in plain PyTorch: the tile
+    responses of :func:`_iir_sequences`, the transposed Toeplitz matrix of
+    ``g``, and :func:`_iir_tiles_ref`'s three passes."""
     Q = _TILE_Q
-    path = force
-    if path is None:
-        if kernels.tile_gate(*v.shape):
-            path = "kernel" if v.is_cuda else "tiles"
-        else:
-            path = "assoc"
-    if path == "kernel":
-        return kernels.iir_tiles(v, s, a1, a2)
-    if path == "assoc":
-        return _iir_assoc(v, s, a1, a2)
-    if path != "tiles":
-        raise ValueError(f"unknown recurrence path {force!r}")
     g, alpha, beta = _iir_sequences(a1, a2, Q)
     i = torch.arange(Q, device=v.device)[:, None]
     j = torch.arange(Q, device=v.device)[None, :]
     TlT = torch.where(i <= j, g[(j - i).clamp(0, Q - 1)], 0.0)  # Tl^T (Q, Q)
     ab = torch.stack([alpha, beta], dim=0)  # (2, Q)
     return _iir_tiles_ref(v, s, TlT, ab, Q)
+
+
+def _iir_plain(v, s, a1, a2):
+    """The plain version of the kernels' recurrence: :func:`_iir_tiles` on
+    a block they take (``kernels.section_gate``), :func:`_iir_assoc` on any
+    other."""
+    if kernels.section_gate(*v.shape):
+        return _iir_tiles(v, s, a1, a2)
+    return _iir_assoc(v, s, a1, a2)
+
+
+def _iir_apply(v, s, a1, a2):
+    """The recurrence ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]``:
+    ``kernels.iir_tiles`` for a block on the card that passes
+    ``kernels.section_gate``, :func:`_iir_plain` for every other."""
+    if v.is_cuda and kernels.section_gate(*v.shape):
+        return kernels.iir_tiles(v, s, a1, a2)
+    return _iir_plain(v, s, a1, a2)
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +305,7 @@ def _iir_apply_dd(v_dd, s_dd, a1_dd, a2_dd):
     return _dd_apply_boundary(_iir_scan_dd(v_dd, a1_dd, a2_dd), s_dd)
 
 
-def _iir_refine(v, s, y, a1, a2, path: str | None = None):
+def _iir_refine(v, s, y, a1, a2):
     """One step of iterative refinement on the pole recurrence: compute the
     defect ``r[n] = v[n] - (y[n] + a1 y[n-1] + a2 y[n-2])`` and add the
     filtered defect back (the defect is ~2^-24 of the signal, so the
@@ -318,28 +318,26 @@ def _iir_refine(v, s, y, a1, a2, path: str | None = None):
     yp = torch.cat([s.flip(1), y], dim=1).double()  # [y[-2], y[-1], y...]
     r = v.double() - (y.double() + a1.double() * yp[:, 1:-1]
                       + a2.double() * yp[:, :-2])
-    return y + _iir_apply(r.float(), torch.zeros_like(s), a1, a2, force=path)
+    return y + _iir_plain(r.float(), torch.zeros_like(s), a1, a2)
 
 
 def _biquad_section_ref(state, x, frames: int, coefs, refine: bool = True):
     """One block through one biquad section as eager ops: the plain version
     of ``kernels.biquad_section``. Same contract as
-    :func:`biquad_section_block`. The recurrence takes ``'tiles'`` for a
-    block the section kernel takes (``kernels.section_gate``) and
-    ``'assoc'`` otherwise, never the kernel."""
+    :func:`biquad_section_block`. The recurrence runs as
+    :func:`_iir_plain`, never on the kernel."""
     b0, b1, b2 = coefs[0], coefs[1], coefs[2]
     a1, a2 = coefs[4], coefs[5]
     xm = zero_past(x, frames)
-    path = "tiles" if kernels.section_gate(*x.shape) else "assoc"
 
     # FIR part v[n] = b0 x[n] + b1 x[n-1] + b2 x[n-2] with carried tail
     buf = torch.cat([state["x_tail"], xm], dim=1)  # (C, B+2)
     v = b0 * buf[:, 2:] + b1 * buf[:, 1:-1] + b2 * buf[:, :-2]
 
     s_init = state["s"]
-    y = _iir_apply(v, s_init, a1, a2, force=path)
+    y = _iir_plain(v, s_init, a1, a2)
     if refine:
-        y = _iir_refine(v, s_init, y, a1, a2, path)
+        y = _iir_refine(v, s_init, y, a1, a2)
 
     # state after the last VALID frame: y_hist[k] = y[k-2], so it is
     # (y_hist[frames+1], y_hist[frames]); frames=0 keeps the carried state

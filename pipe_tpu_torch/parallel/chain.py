@@ -376,8 +376,8 @@ def _affine_combine(left, right):
 def _sharded_iir(v, s, a1, a2, basis):
     """Pole recurrence ``y[n] = v[n] - a1 y[n-1] - a2 y[n-2]`` over a
     time-sharded chunk, built from the streaming engine's recurrence
-    (``ops.biquad._iir_apply``: the CUDA tile kernel for a local block on
-    the card that passes the tile gate):
+    (``ops.biquad._iir_apply``: ``kernels.iir_tiles`` for a local block on
+    the card that passes ``kernels.section_gate``):
 
       1. zero-entering-state local response ``y0``: the hot pass;
       2. ``basis = (alpha, beta)``: length-N responses to unit entering
@@ -425,8 +425,8 @@ class BiquadStage(Stage):
     recurrence (see :func:`_sharded_iir`), with one iterative-refinement
     pass on the pole recurrence, crossing the shard boundary like the main
     pass, to clear 100 dB on high-Q poles. ``refine=False`` skips the second
-    pass. On the card, each pass of a local block on the tile gate is one
-    launch of ``kernels.iir_tiles``.
+    pass. On the card, each pass of a local block on ``kernels.section_gate``
+    (whole 8-channel groups, any length) is one ``kernels.iir_tiles`` call.
 
     ``precision='extended'`` runs the double-f32 engine instead: the local
     prefix scan, the cross-rank exclusive prefix of per-rank affine totals
@@ -470,13 +470,14 @@ class BiquadStage(Stage):
 
     def _unit_responses(self, coefs, N: int, slot: int):
         """``(alpha, beta)`` as a (2, N) tensor: the responses to unit
-        entering states, shared by both passes. A (2, N) block fails the
-        tile gate's channel rule and takes the float64 prefix-doubling
-        path, log2(N) passes of small launches, so the result is kept until
-        the coefficients change: the key is the coefficient tensor's
-        address and version, and the tensor is held so that its address
-        cannot be reused while the entry lives (``ShardedChain.params``
-        hands over a new tensor whenever the host values changed)."""
+        entering states, shared by both passes. A (2, N) block fails
+        ``kernels.section_gate``'s channel rule and takes the float64
+        prefix-doubling path, log2(N) passes of small launches, so the
+        result is kept until the coefficients change: the key is the
+        coefficient tensor's address and version, and the tensor is held
+        so that its address cannot be reused while the entry lives
+        (``ShardedChain.params`` hands over a new tensor whenever the host
+        values changed)."""
         key = (coefs.data_ptr(), coefs._version, N)
         hit = self._basis.get(slot)
         if hit is None or hit[0] != key:

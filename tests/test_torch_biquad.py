@@ -39,32 +39,38 @@ def _recurrence_inputs(seed, C, B):
     return v, s, a1, a2
 
 
+PORT_PATHS = {"tiles": tbq._iir_tiles, "assoc": tbq._iir_assoc}
+
+
 @pytest.mark.parametrize("jax_path", ["tiles", "pallas_interpret", "assoc"])
-@pytest.mark.parametrize("port_path", ["tiles", "assoc"])
+@pytest.mark.parametrize("port_path", PORT_PATHS)
 def test_iir_apply_matches_jax(port_path, jax_path):
     v, s, a1, a2 = _recurrence_inputs(1, 8, 4096)
     ref = np.asarray(jax.jit(
         lambda: jbq._iir_apply(jnp.asarray(v), jnp.asarray(s), jnp.float32(a1),
                                jnp.float32(a2), force=jax_path)
     )())
-    got = tbq._iir_apply(torch.from_numpy(v), torch.from_numpy(s),
-                         torch.tensor(a1), torch.tensor(a2), force=port_path)
+    got = PORT_PATHS[port_path](torch.from_numpy(v), torch.from_numpy(s),
+                                torch.tensor(a1), torch.tensor(a2))
     assert got.shape == (8, 4096)
     assert snr_db(ref, got.numpy()) > 110
 
 
-def test_iir_default_path_on_cpu_is_plain_tiles():
-    """A CPU tensor that passes the tile gate takes the plain version; the
-    kernel path itself refuses a CPU tensor instead of falling back."""
-    v, s, a1, a2 = _recurrence_inputs(2, 8, 2048)
+@pytest.mark.parametrize("shape", [(8, 2048), (8, 1000), (8, 640)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_iir_default_path_on_cpu_is_plain_tiles(shape):
+    """A CPU block with whole 8-channel groups takes the plain tile version
+    at any length (a partial last tile included); the kernel itself refuses
+    a CPU tensor instead of falling back."""
+    v, s, a1, a2 = _recurrence_inputs(2, *shape)
     args = (torch.from_numpy(v), torch.from_numpy(s), torch.tensor(a1),
             torch.tensor(a2))
-    before = kernels.iir_tiles_launches
+    before = kernels.launch_counts()["iir_tiles"]
     y = tbq._iir_apply(*args)
-    assert torch.equal(y, tbq._iir_apply(*args, force="tiles"))
+    assert torch.equal(y, tbq._iir_tiles(*args))
     with pytest.raises(ValueError, match="CUDA"):
-        tbq._iir_apply(*args, force="kernel")
-    assert kernels.iir_tiles_launches == before
+        kernels.iir_tiles(*args)
+    assert kernels.launch_counts()["iir_tiles"] == before
 
 
 SECTIONS = {  # name -> float64 SOS row
@@ -92,8 +98,8 @@ def _section_inputs(section, shape, seed):
     a1, a2 = np.float32(row[4]), np.float32(row[5])
     v = rng.standard_normal(shape).astype(np.float32)
     s = rng.standard_normal((shape[0], 2)).astype(np.float32)
-    port = tbq._iir_apply(torch.from_numpy(v), torch.from_numpy(s),
-                          torch.tensor(a1), torch.tensor(a2), force="tiles")
+    port = tbq._iir_tiles(torch.from_numpy(v), torch.from_numpy(s),
+                          torch.tensor(a1), torch.tensor(a2))
     return v, s, a1, a2, port.numpy()
 
 

@@ -20,6 +20,9 @@ from pipe_tpu_torch import checkpoint, config, kernels, mock, ops
 from pipe_tpu_torch.ops.biquad import (
     _biquad_section_ref,
     _iir_apply,
+    _iir_assoc,
+    _iir_plain,
+    _iir_tiles,
     biquad_block,
     biquad_init_state,
     biquad_section_block,
@@ -64,22 +67,53 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         kernels.biquad_section(x, 2048, x_tail, s, coefs)
 
 
+def test_kernel_wrappers_refuse_more_channel_groups_than_a_grid_holds():
+    """The gate carries the grid's limit of 65,535 groups of 8 channels:
+    524,280 channels pass it, 524,288 do not, and both wrappers refuse such
+    a block naming the rule, before they look at its device."""
+    assert kernels.section_gate(524280, 1)
+    assert not kernels.section_gate(524288, 1)
+    with pytest.raises(ValueError, match="multiple of 8 of at most 524280"):
+        kernels.iir_tiles(*_recurrence_inputs("cpu", 524288, 1))
+    x, x_tail, s, coefs = _section_inputs("cpu", 524288, 1)
+    with pytest.raises(ValueError, match="multiple of 8 of at most 524280"):
+        kernels.biquad_section(x, 1, x_tail, s, coefs)
+
+
+def _recurrence_f64(v, s, a1, a2):
+    """The recurrence step by step in float64 (float32 coefficients)."""
+    a1, a2 = float(a1), float(a2)
+    v = v.double().cpu().numpy()
+    y = np.empty_like(v)
+    y1, y2 = s[:, 0].double().cpu().numpy(), s[:, 1].double().cpu().numpy()
+    for n in range(v.shape[1]):
+        y[:, n] = v[:, n] - a1 * y1 - a2 * y2
+        y1, y2 = y[:, n], y1
+    return y
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(8, 1000), (12, 2048), (8, 1024)],
                          ids=["B%256", "C%8", "B<2048"])
 def test_kernel_wrapper_refuses_shapes_off_the_gate(cuda, shape):
-    """``iir_tiles`` keeps the tile gate; ``biquad_section`` refuses only a
-    channel count that is not a multiple of 8, and takes the other two
-    blocks (a partial last tile, fewer than 2048 frames)."""
-    with pytest.raises(ValueError, match="B a multiple of 256 and >= 2048"):
-        kernels.iir_tiles(*_recurrence_inputs(cuda, *shape))
+    """Both wrappers refuse a channel count that is not a multiple of 8 and
+    take the other two blocks (a partial last tile, fewer than 2048
+    frames): ``iir_tiles`` >= 110 dB from its plain version (the bar of
+    :func:`test_iir_kernel_matches_plain`) and >= 90 dB from float64."""
+    args = _recurrence_inputs(cuda, *shape)
     x, x_tail, s, coefs = _section_inputs(cuda, *shape)
     if shape[0] % 8:
         with pytest.raises(ValueError, match="C must be a positive multiple of 8"):
+            kernels.iir_tiles(*args)
+        with pytest.raises(ValueError, match="C must be a positive multiple of 8"):
             kernels.biquad_section(x, shape[1], x_tail, s, coefs)
-    else:
-        y, _, _ = kernels.biquad_section(x, shape[1], x_tail, s, coefs)
-        assert y.shape == shape
+        return
+    y = kernels.iir_tiles(*args)
+    assert y.shape == shape
+    assert snr_db(_iir_tiles(*args).cpu().numpy(), y.cpu().numpy()) > 110
+    assert snr_db(_recurrence_f64(*args), y.cpu().numpy()) >= 90
+    y, _, _ = kernels.biquad_section(x, shape[1], x_tail, s, coefs)
+    assert y.shape == shape
 
 
 @pytest.mark.gpu
@@ -123,11 +157,11 @@ def test_iir_kernel_matches_plain(cuda, shape):
     its recurrence paths); the default path on a CUDA tensor launches the
     kernel exactly once."""
     args = _recurrence_inputs(cuda, *shape, seed=2)
-    before = kernels.iir_tiles_launches
+    before = kernels.launch_counts()["iir_tiles"]
     y_kernel = _iir_apply(*args)
     torch.cuda.synchronize()
-    assert kernels.iir_tiles_launches == before + 1
-    y_plain = _iir_apply(*args, force="tiles")
+    assert kernels.launch_counts()["iir_tiles"] == before + 1
+    y_plain = _iir_tiles(*args)
     assert snr_db(y_plain.cpu().numpy(), y_kernel.cpu().numpy()) > 110
 
 
@@ -909,13 +943,11 @@ def test_launch_counts_exact_under_threads():
     assert not any(t.is_alive() for t in threads)
     assert kernels.launch_counts() == {"iir_tiles": 6000, "biquad_section": 6000,
                                        "envelope_block": 6000}
-    assert kernels.iir_tiles_launches == 6000
     assert kernels.launch_counts(by_thread=True) == {
         f"counter{i}": {kernels.KERNELS[i % 3]: 2000} for i in range(9)}
     kernels.reset_counts()
     assert kernels.launch_counts() == {"iir_tiles": 0, "biquad_section": 0,
                                        "envelope_block": 0}
-    assert kernels.iir_tiles_launches == 0
     assert kernels.launch_counts(by_thread=True) == {}
 
 
@@ -1089,8 +1121,8 @@ def test_precision_knob_does_not_move_the_biquad_on_the_card(cuda):
     sos = ops.design_peaking_eq(48000, 1000, 1.0, 3.0)
     hi, lo = (torch.tensor(a, device=cuda) for a in split_f32_pair(sos))
     paths = {
-        "tiles": lambda: _iir_apply(x, s, coefs[4], coefs[5], force="tiles"),
-        "assoc": lambda: _iir_apply(x, s, coefs[4], coefs[5], force="assoc"),
+        "tiles": lambda: _iir_tiles(x, s, coefs[4], coefs[5]),
+        "assoc": lambda: _iir_assoc(x, s, coefs[4], coefs[5]),
         "kernel": lambda: _iir_apply(x, s, coefs[4], coefs[5]),
         "section_ref": lambda: _biquad_section_ref(
             {"x_tail": x_tail, "s": s}, x, 2560, coefs)[1],
@@ -1290,8 +1322,7 @@ def test_sharded_biquad_stage_launches_the_tile_kernel(cuda):
     plain = parallel.ShardedChain(mesh, [parallel.BiquadStage(sos)], 16, 4096,
                                   device=cuda)
     real = chain_mod._iir_apply
-    chain_mod._iir_apply = lambda v, s, a1, a2: real(
-        v, s, a1, a2, force="tiles" if kernels.tile_gate(*v.shape) else None)
+    chain_mod._iir_apply = _iir_plain
     try:
         kernels.reset_counts()
         y_plain = plain.process(x)
@@ -1303,12 +1334,14 @@ def test_sharded_biquad_stage_launches_the_tile_kernel(cuda):
 
     ref = scipy.signal.sosfilt(sos[None, :], x.astype(np.float64), axis=1)
     assert snr_db(ref, y) >= 100
-    # a chunk off the tile gate takes the prefix path: no launch, no error
+    # a chunk of any length takes the kernel too: 1000 frames, a partial
+    # last tile, launch it twice
     small = parallel.ShardedChain(mesh, [parallel.BiquadStage(sos)], 16, 1000,
                                   device=cuda)
     kernels.reset_counts()
-    small.step(x[:, :1000])
-    assert kernels.launch_counts()["iir_tiles"] == 0
+    y_small = small.step(x[:, :1000])
+    assert kernels.launch_counts()["iir_tiles"] == 2
+    assert snr_db(ref[:, :1000], y_small.cpu().numpy()) >= 100
 
 
 def _sharded_cases():

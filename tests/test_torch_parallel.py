@@ -494,7 +494,15 @@ OTHER_STAGES = {
     "BiquadStage-norefine": (
         lambda C: [spec("BiquadStage", EQ_ROWS[0], refine=False)],
         lambda x: scipy.signal.sosfilt(EQ_ROWS[0][None, :], x, axis=1)),
+    "BiquadStage-1x1-chunk1000": (
+        lambda C: [spec("BiquadStage", EQ_ROWS[0])],
+        lambda x: scipy.signal.sosfilt(EQ_ROWS[0][None, :], x, axis=1)),
 }
+
+# name -> (mesh, channels, chunk) of a case off the 2x4 mesh's 4 channels in
+# chunks of 2048: 8 channels in chunks of 1000 on one rank are a local block
+# with whole 8-channel groups and a partial last tile, the plain tile path
+LAYOUTS = {"BiquadStage-1x1-chunk1000": ((1, 1), 8, 1000)}
 
 
 def _ir(P, C=None):
@@ -600,14 +608,15 @@ OTHER_STAGES.update({
 
 @pytest.mark.parametrize("name", OTHER_STAGES)
 def test_stage_vs_oracle_and_jax(rng, pool, name):
-    """Each stage beyond the main path on a 2x4 mesh, two chunks."""
-    C, chunk = 4, 2048
+    """Each stage beyond the main path on a 2x4 mesh (or its case's
+    ``LAYOUTS`` entry), two chunks."""
+    mesh, C, chunk = LAYOUTS.get(name, ((2, 4), 4, 2048))
     stages_of, oracle_of, *input_of = OTHER_STAGES[name]
     if input_of:
         x = input_of[0](rng, C, 2 * chunk)
     else:
         x = rng.standard_normal((C, 2 * chunk)).astype(np.float32)
-    out, jout = both(pool, (2, 4), stages_of(C), C, chunk, x)
+    out, jout = both(pool, mesh, stages_of(C), C, chunk, x)
     # without its refinement pass a section sits at the float32 recurrence's
     # own floor in both packages, with independent rounding noise: 95 dB
     bar = 95 if name.endswith("norefine") else 100

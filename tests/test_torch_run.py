@@ -288,10 +288,10 @@ def test_cancel_stops_at_a_block_boundary_and_flushes():
 
 
 def test_cpu_run_launches_no_kernel():
-    before = kernels.iir_tiles_launches
+    before = kernels.launch_counts()["iir_tiles"]
     x = np.random.default_rng(31).standard_normal((C, BLOCK)).astype(np.float32)
     stream(pipe_tpu_torch, slice_processors(tops, C), x, BLOCK)
-    assert kernels.iir_tiles_launches == before
+    assert kernels.launch_counts()["iir_tiles"] == before
 
 
 @pytest.mark.parametrize("lookahead,batch_blocks", [(4, 1), (1, 4), (4, 4)])
